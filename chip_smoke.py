@@ -1,0 +1,370 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (one line each, the card's name and power limit beside every
+time):
+
+1. device facts: GPU, power limit, CUDA runtime, nvcc, triton;
+2. build of the CUDA kernels with nvcc (first use), with its seconds;
+3. the main path: ``MCL3DL(Params(num_particles=1<<20), device="cuda")``
+   on the flagship room world, stationary odometry and scans through
+   ``push_cloud``.  A first ``initial_pose`` spread wide in x/y (0.2 m)
+   and tight in attitude is measured once, through the likelihood
+   model's tier-1 box kernel K3; then ``initial_pose`` with the tracking
+   spread and 10 more scans, which must end at tiers 0/0 (kernels K1 and
+   K2) with a published pose within 0.05 m / 0.05 rad of the truth.  Kernel launch
+   counts are zeroed right before the drive and read right after it;
+4. each kernel against its plain PyTorch version on the card at the main
+   path's shapes (inputs from the drive's last state): bit-equal on every
+   slot whose value the caller keeps, then timed beside its bound;
+5. where a steady step's time goes: each layer timed on the final state,
+   ``push_cloud`` over 20 more scans, and one step under
+   ``torch.profiler`` for the device-busy share.
+
+The second-to-last line is the card's ``nvidia-smi`` name and power
+limit, the one before it the kernel JSON; the last line is
+``{"ok": true, "device": {...}}``.  Any failed phase raises (exit code
+1); without a CUDA device the script exits 1 before any phase.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_OPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+NUM_PARTICLES = 1 << 20
+N_SCANS = 10                   # pushes after the tracking re-seed
+# initial pose wide in x/y, tight in attitude: the likelihood model's box
+# tier (kernel K3) scores the first scan after it
+COARSE_COV = np.diag([0.2 ** 2, 0.2 ** 2, 0.002 ** 2, 0.002 ** 2,
+                      0.002 ** 2, 0.005 ** 2])
+CLOUD_POINTS = 4096
+STEADY_STEPS = 20              # extra scans timed at steady state
+
+
+def sh(cmd):
+    out = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, check=False)
+    return out.stdout.strip()
+
+
+def cuda_ms(fn, iters):
+    """Median milliseconds of ``fn`` over ``iters`` launches (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def profile_step(eng, scan, origin, card):
+    """One steady measurement under ``torch.profiler``: the device-busy
+    share of its wall time; the op table goes to
+    chiprun_out/profile_step.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = np.zeros(len(scan), np.int64)
+    orig = origin[None].astype(np.float32)
+    eng.measure_direct(scan, orig, labels, 100.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.measure_direct(scan, orig, labels, 100.1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/profile_step.txt", "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    print(f"phase 5 profile: step wall {wall * 1e3:.2f} ms, device busy "
+          f"{dev_us / 1e3:.2f} ms ({100.0 * dev_us / 1e3 / (wall * 1e3):.1f}%),"
+          f" {len(events)} distinct ops {card}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mcl_3dl_tpu_torch import MCL3DL, Params, worlds
+    from mcl_3dl_tpu_torch.models.beam import grouped_beam_inputs
+    from mcl_3dl_tpu_torch.models.likelihood import (box_queries, box_tables,
+                                                     grouped_like_inputs)
+    from mcl_3dl_tpu_torch.ops import build
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.ops import local_gather as olg
+
+    # ---- phase 1: device facts
+    name = torch.cuda.get_device_name(0)
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]).splitlines()[0]
+    nvcc = sh([build._nvcc(), "--version"]).splitlines()[-1]
+    try:
+        import triton
+        triton_v = triton.__version__
+    except ImportError:
+        triton_v = "absent"
+    card = f"[{smi}]"
+    print(f"phase 1 device: {name} | nvidia-smi: {smi} | torch {torch.__version__}"
+          f" cuda {torch.version.cuda} | nvcc: {nvcc} | triton: {triton_v}",
+          flush=True)
+
+    # ---- phase 2: build
+    t0 = time.perf_counter()
+    build.build(verbose=True)
+    build.library()
+    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc, 2 sources"
+          " in parallel + link)", flush=True)
+
+    # ---- phase 3: the main path through the public entry points
+    params = Params(num_particles=NUM_PARTICLES, use_beam_model=True)
+    eng = MCL3DL(params, device="cuda")
+    eng.load_map(worlds.world_map())
+    ident = np.array([0.0, 0.0, 0.0, 1.0])
+    rng = np.random.default_rng(0)
+    origin = np.array([0.0, 0.0, worlds.SENSOR_Z])
+    kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
+               "local": olg.local_score}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    eng.initial_pose(np.zeros(3), ident, COARSE_COV)
+    steps = []
+    t = 0.0
+    for i in range(2 + N_SCANS):
+        if i == 2:
+            eng.initial_pose(np.zeros(3), ident, worlds.TRACKING_COV)
+        eng.odometry(np.zeros(3), ident, t)
+        cloud = worlds.scan(rng, CLOUD_POINTS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = eng.push_cloud("lidar", cloud, origin, t)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        if res is not None:
+            aux = eng.last_aux
+            steps.append((dt, aux["tier_like"], aux["tier_beam"], res))
+        t += 0.1
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print("phase 3 per step (tier_like, tier_beam, raw z): "
+          + " ".join(f"{a},{b},{r.raw_pos[2]:.4f}" for _, a, b, r in steps),
+          flush=True)
+    last = steps[-1][3]
+    assert (steps[-1][1], steps[-1][2]) == (0, 0), "not at tiers 0/0"
+    assert all(n > 0 for n in launches.values()), launches
+    for key in ("e_pos", "e_rot", "pub_pos", "pub_rot", "cov", "entropy",
+                "match_ratio_min", "match_ratio_max"):
+        assert np.isfinite(np.asarray(eng.last_aux[key], np.float64)).all(), key
+    # the published pose (TF-smoothed, what a user of the node reads)
+    pos_err = float(np.linalg.norm(last.pos))
+    w = abs(float(last.rot[3])) / float(np.linalg.norm(last.rot))
+    rot_err = 2.0 * float(np.arccos(min(w, 1.0)))       # rotation angle
+    assert pos_err < 0.05 and rot_err < 0.05, (last.pos, last.rot)
+    raw_err = float(np.linalg.norm(last.raw_pos))
+    steady = [dt for dt, a, b, _ in steps if (a, b) == (0, 0)][1:]
+    step_s = statistics.median(steady)
+    print(f"phase 3 main path: {NUM_PARTICLES} particles, {len(steps)} "
+          f"measurements, launches {launches}, published pose err {pos_err:.4f} m"
+          f" / {rot_err:.4f} rad (raw mean {raw_err:.4f} m), push_cloud median {step_s * 1e3:.2f} ms over "
+          f"{len(steady)} steady steps, "
+          f"{NUM_PARTICLES * (96 + 3) / step_s:.4e} particle-point evals/s, "
+          f"peak memory {peak / 2**30:.2f} GiB {card}", flush=True)
+
+    # ---- phase 4: each kernel against its plain version, main-path shapes
+    p = params
+    lp, bp = p.likelihood, p.beam
+    scan = worlds.scan(rng, CLOUD_POINTS)
+    _, cloud_t = eng.prepare_cloud(scan, np.zeros(len(scan), np.int64),
+                                   origin[None].astype(np.float32))
+    st = eng.pstate
+    mask = st.active_mask()
+    (like_pts, like_valid, beam_pts, beam_labels, beam_valid, _,
+     _) = eng.sample_points(*cloud_t[:3])
+    rmat, g_like, g_beam = eng.group(
+        st.pos, st.rot, mask, eng.map.df, eng.map.df_beam, like_pts,
+        like_valid, beam_pts, beam_labels, beam_valid, cloud_t[3])
+    assert g_like[3] and g_beam[3], "kernel inputs need fitting boxes"
+    stats, layout, lo_l, _ = g_like
+    _, _, lo_b, _, vp = g_beam
+    df = eng.map.df
+    # slots of in-envelope particles: the overflow bin's slots are
+    # rescored exactly by the caller, and there the kernel's whole-point
+    # skip (which the plain version does not take) is not a no-op
+    dest = layout.dest[stats.g != og.G_GROUPS - 1]
+    results = []
+
+    def report(kname, src, replaces, kernel, plain, bytes_, ops, launches_n,
+               sel):
+        """Hold ``kernel`` against ``plain`` on the slots ``sel`` (an index
+        tensor), time both, and record the kernel's line."""
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b in zip(got, want):
+            a, b = a[sel], b[sel]
+            assert torch.equal(a, b), f"{kname}: kernel != plain"
+            err = max(err, float((a - b).abs().max()))
+        ms = cuda_ms(kernel, 25)
+        plain_ms = cuda_ms(plain, 3)
+        bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        by = "bytes" if bytes_ / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+        results.append(dict(name=kname, route="cuda", source=src,
+                            replaces=replaces, launches=launches_n,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=by, library_ms=None))
+        print(f"phase 4 {kname}: bit-equal on {sel.numel()} slots, {ms:.4f} ms (bound {bound_ms:.4f} ms by {by}), plain "
+              f"{plain_ms:.2f} ms {card}", flush=True)
+
+    # K1 at [nt, 12, 1024] x 96 points x 97 bins
+    meta, pfp, skipw, tables = grouped_like_inputs(df, stats, lo_l, like_pts,
+                                                   like_valid, lp.match_dist_min)
+    kw1 = dict(match_dist_min=lp.match_dist_min,
+               match_dist_flat=lp.match_dist_flat,
+               match_weight=lp.match_weight, trunc=float(df.trunc))
+    nt = layout.A.shape[0]
+    tiles_per_bin = torch.bincount(layout.tile_group.long(),
+                                   minlength=og.G_GROUPS)
+    live = (skipw != og.SKIP_ALL) & (tiles_per_bin > 0)[None, :]
+    live_lookups = int((live.long() * tiles_per_bin[None, :]).sum()) * og.TILE
+    k1_bytes = (nt * 12 * og.TILE * 4 + nt * 4 + meta.numel() * 4
+                + pfp.numel() * 4 + skipw.numel() * 4
+                + int(live.sum()) * og.R_ROWS * og.ZW + 2 * nt * og.TILE * 4)
+    report("like_score", "mcl_3dl_tpu_torch/csrc/grouped.cu",
+           "mcl_3dl_tpu/ops/grouped.py:778 (_like_kernel)",
+           lambda: og.grouped_like_score(layout.A, layout.tile_group, meta, pfp,
+                                         skipw, tables, **kw1),
+           lambda: og.like_score_plain(layout.A, layout.tile_group, meta, pfp,
+                                       skipw, tables, **kw1),
+           k1_bytes, live_lookups * 25, launches["like"], dest)
+
+    # K2 at 3 beams x 61 probes x 97 bins
+    bmeta, bpfp, baux, bskip, btables = grouped_beam_inputs(
+        eng.map.df_beam, stats, lo_b, vp, beam_valid, p.map_grid_max)
+    kw2 = dict(nprobe=vp.nprobe, trunc=float(eng.map.df_beam.trunc),
+               grid_min=p.map_grid_min, radius=2.0 ** 0.5 * p.map_grid_max / 2.0,
+               hit_range=bp.hit_range,
+               sin_total_ref=float(np.sin(bp.ang_total_ref)),
+               long_pen=not bp.add_penalty_short_only_mode, tol=bp.hit_range)
+    blive = (bskip != og.SKIP_ALL) & (tiles_per_bin > 0)[None, :]
+    b_lookups = int((blive.long() * tiles_per_bin[None, :]).sum()) * og.TILE
+    k2_bytes = (nt * 12 * og.TILE * 4 + nt * 4 + bmeta.numel() * 4
+                + bpfp.numel() * 4 + baux.numel() * 4 + bskip.numel() * 4
+                + int(blive.sum()) * og.R_ROWS * og.ZW + nt * og.TILE * 4)
+    report("beam_pen", "mcl_3dl_tpu_torch/csrc/grouped.cu",
+           "mcl_3dl_tpu/ops/grouped.py:918 (_beam_kernel)",
+           lambda: (og.grouped_beam_pen(layout.A, layout.tile_group, bmeta,
+                                        bpfp, baux, bskip, btables, **kw2),),
+           lambda: (og.beam_pen_plain(layout.A, layout.tile_group, bmeta, bpfp,
+                                      baux, bskip, btables, **kw2),),
+           k2_bytes, b_lookups * 30, launches["beam"], dest)
+
+    # K3 at 96 points x 1M particles (tier-1 box tables of this state)
+    iq, lo3, ext = box_queries(df, st.pos, rmat, like_pts)
+    ltab, lidx = box_tables(df, iq, lo3, like_valid)
+    del iq
+    kw3 = dict(match_dist_min=lp.match_dist_min,
+               match_dist_flat=lp.match_dist_flat, match_weight=lp.match_weight)
+    n = lidx.shape[1]
+    k3_bytes = ltab.numel() * 4 + lidx.numel() * 4 + 2 * n * 4
+    report("local_score", "mcl_3dl_tpu_torch/csrc/local_gather.cu",
+           "mcl_3dl_tpu/ops/local_gather.py:44 (_score_kernel)",
+           lambda: olg.local_score(ltab, lidx, **kw3),
+           lambda: olg.local_score_plain(ltab, lidx, **kw3),
+           k3_bytes, lidx.numel() * 8, launches["local"],
+           torch.arange(n, device=lidx.device))
+
+    del ltab, lidx
+
+    # ---- phase 5: per-layer split of a steady step (CUDA events, 5 runs)
+    from mcl_3dl_tpu_torch.models.beam import _overflow_beam_pen
+    from mcl_3dl_tpu_torch.models.likelihood import _score_from_dist
+
+    over = layout.over_idx
+    kms = {r["name"]: r["ms"] for r in results}
+
+    def like_rescore():
+        q = og.overflow_transform(stats.A, over, like_pts)
+        d = og.overflow_field_lookup(df.field, q).to(torch.float32) * (df.trunc / 255.0)
+        return _score_from_dist(d, like_valid[None, :], lp.match_dist_min,
+                                lp.match_dist_flat, lp.match_weight, dim=1)
+
+    def beam_rescore():
+        return _overflow_beam_pen(
+            eng.map.df_beam, st.pos, st.rot, over, beam_pts, beam_labels,
+            beam_valid, cloud_t[3], map_grid_min=p.map_grid_min,
+            map_grid_max=p.map_grid_max, hit_range=bp.hit_range,
+            sin_total_ref=kw2["sin_total_ref"], long_pen=kw2["long_pen"],
+            num_steps=vp.nprobe - 1)
+
+    group_args = (st.pos, st.rot, mask, df, eng.map.df_beam, like_pts,
+                  like_valid, beam_pts, beam_labels, beam_valid, cloud_t[3])
+    split = {
+        "group stats + boxes + layout": cuda_ms(lambda: eng.group(*group_args), 5),
+        "like tables + skip words": cuda_ms(lambda: grouped_like_inputs(
+            df, stats, lo_l, like_pts, like_valid, lp.match_dist_min), 5),
+        "K1 like_score": kms["like_score"],
+        "like overflow rescore": cuda_ms(like_rescore, 5),
+        "beam tables + skip words": cuda_ms(lambda: grouped_beam_inputs(
+            eng.map.df_beam, stats, lo_b, vp, beam_valid, p.map_grid_max), 5),
+        "K2 beam_pen": kms["beam_pen"],
+        "beam overflow rescore": cuda_ms(beam_rescore, 5),
+    }
+    models_ms = cuda_ms(lambda: eng._measure_models(*group_args), 5)
+    split["measure_models total"] = models_ms
+    split["rest of push_cloud (sampling, PF tail, host)"] = step_s * 1e3 - models_ms
+    print("phase 5 split (ms): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f" {card}", flush=True)
+
+    # steady-state push_cloud time over STEADY_STEPS more scans
+    times, tiers = [], set()
+    for _ in range(STEADY_STEPS + 1):
+        eng.odometry(np.zeros(3), ident, t)
+        cloud = worlds.scan(rng, CLOUD_POINTS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = eng.push_cloud("lidar", cloud, origin, t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        tiers.add((eng.last_aux["tier_like"], eng.last_aux["tier_beam"]))
+        t += 0.1
+    times = sorted(times[1:])
+    print(f"phase 5 steady push_cloud over {len(times)} scans, tiers {tiers}:"
+          f" median {statistics.median(times) * 1e3:.2f} ms, max "
+          f"{times[-1] * 1e3:.2f} ms, {NUM_PARTICLES * (96 + 3) / statistics.median(times):.4e}"
+          f" particle-point evals/s {card}", flush=True)
+    profile_step(eng, scan, origin, card)
+
+    print(json.dumps({"kernels": results}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,638 @@
+"""MCL engine (reference layer L6: src/mcl_3dl.cpp, class MCL3dlNode).
+
+A host shell around one measurement step on the device:
+
+* :meth:`MCL3DL.odometry`   — cbOdom (src/mcl_3dl.cpp:200-247)
+* :meth:`MCL3DL.imu`        — cbImu (:941-1018)
+* :meth:`MCL3DL.push_cloud` — cbCloud + accumulation (:248-302)
+* :meth:`MCL3DL._measurement_step` — measure() (:304-898): scan clip and
+  sampling, both LIDAR models, the odometry-error prior, weight update,
+  bias, pose expectation, jump detection, TF smoothing, covariance,
+  convergence flags, resampling, noise redraw and expansion resetting.
+
+The measurement tiers are chosen on the host: the ``fits`` flags of both
+models come back in one device-to-host read per step, and ``aux`` reports
+``tier_like``/``tier_beam`` with the JAX package's ids (0 grouped
+kernel, 1 per-point box kernel, 2 plain gather, -1 model off).
+
+Randomness comes from one ``torch.Generator`` on the engine's device,
+seeded from ``Params.seed``; every function below the engine takes its
+draws as tensors (``StepDraws``), so tests can inject other draws.
+
+Not in this slice: global localization and the particle-count decay
+(a step above ``num_particles`` raises), the services, the normal-
+weighted sampler, trilinear sampling, the DDA raycast, correlative
+localization, checkpoints and the fleet.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from mcl_3dl_tpu_torch import pf
+from mcl_3dl_tpu_torch import state as st
+from mcl_3dl_tpu_torch.cloud_accum import (CloudAccumulation,
+                                           CloudAccumulationPassThrough)
+from mcl_3dl_tpu_torch.config import Params
+from mcl_3dl_tpu_torch.map.map_data import MapData
+from mcl_3dl_tpu_torch.map.voxel import voxel_downsample
+from mcl_3dl_tpu_torch.math import filters as mf
+from mcl_3dl_tpu_torch.math import quat as mq
+from mcl_3dl_tpu_torch.math import quat_np as mqn
+from mcl_3dl_tpu_torch.math.nd import normal_likelihood
+from mcl_3dl_tpu_torch.models.beam import (BeamVirtualPoints, beam_measure,
+                                           beam_measure_grouped)
+from mcl_3dl_tpu_torch.models.imu_gravity import imu_gravity_likelihood
+from mcl_3dl_tpu_torch.models.likelihood import clip_mask, likelihood_measure
+from mcl_3dl_tpu_torch.models.motion import (OdomDelta,
+                                             predict_differential_drive,
+                                             reset_error_integrals)
+from mcl_3dl_tpu_torch.models.samplers import (draw_uniform_indices,
+                                               sample_uniform)
+from mcl_3dl_tpu_torch.ops import grouped as og
+from mcl_3dl_tpu_torch.state import ParticleState
+from mcl_3dl_tpu_torch.status import (ConvergenceStatus, ErrorCode,
+                                      FilterStatus, MeasureResult, Status)
+
+# TF32 would keep ~3 decimal digits in the small f32 transforms
+# (einsum/matmul in the models and the per-bin moments): off.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+class StepDraws(NamedTuple):
+    """Random draws of one measurement step."""
+
+    like_idx: torch.Tensor          # [K_like] i64 sampled cloud indices
+    beam_idx: torch.Tensor          # [K_beam] i64
+    u0: torch.Tensor                # [] f32 resampling comb offset in [0, 1)
+    resample_normals: torch.Tensor  # [cap, 6] f32
+    noise_normals: torch.Tensor     # [cap, 4] f32
+    expand_normals: torch.Tensor    # [cap, 6] f32
+
+
+def _bucket(n: int, base: int = 64) -> int:
+    """Round up to a power-of-two capacity bucket."""
+    c = max(base, 1)
+    while c < n:
+        c *= 2
+    return c
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller asks for another device."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "MCL3DL runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run the plain versions")
+        device = "cuda"
+    return torch.device(device)
+
+
+def beam_num_steps(params: Params) -> int:
+    """Fixed-march probe count of the grouped beam (covers the longest
+    clipped ray plus a 1 m sensor-origin margin)."""
+    bp = params.beam
+    z_ext = max(abs(bp.clip_z_min), abs(bp.clip_z_max))
+    return int(math.ceil((math.hypot(bp.clip_far, z_ext) + bp.hit_range + 1.0)
+                         / params.map_grid_min)) + 2
+
+
+class MCL3DL:
+    """6-DOF Monte Carlo localizer on one CUDA device."""
+
+    def __init__(self, params: Optional[Params] = None,
+                 capacity: Optional[int] = None, device=None):
+        self.params = params or Params()
+        p = self.params
+        if p.likelihood.interp != "nearest":
+            raise NotImplementedError("trilinear sampling: later slice")
+        if p.use_random_sampler_with_normal:
+            raise NotImplementedError("normal-weighted sampler: later slice")
+        if p.beam.use_raycast_using_dda:
+            raise NotImplementedError("DDA raycast: later slice")
+        self.device = resolve_device(device)
+        dev = self.device
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(p.seed)
+        self._base_capacity = _bucket(p.num_particles)
+        cap = capacity or self._base_capacity
+
+        mean_pos, mean_rpy = p.initial_pose_mean
+        self.pstate = st.init_diagonal(
+            self._normals(cap, 6), cap, p.num_particles, mean_pos, mean_rpy,
+            p.initial_pose_sigma)
+
+        self.f_pos = mf.lpf_init(p.lpf_step, torch.zeros(3), device=dev)
+        self.f_ang = mf.lpf_init(p.lpf_step, torch.zeros(3), angle=True,
+                                 device=dev)
+        # host-side scalar filters
+        self.f_acc = mf.lpf_init(p.acc_lpf_step, torch.zeros(3))
+        self.localize_rate = mf.lpf_init(5.0, 0.0)
+
+        if p.accum_cloud == 0:
+            self.accum = CloudAccumulationPassThrough()
+        else:
+            self.accum = CloudAccumulation(p.accum_cloud, p.total_accum_cloud_max)
+
+        self.map: Optional[MapData] = None
+        self.has_map = False
+        self.has_odom = False
+        self.has_imu = False
+        self.odom_pos = np.zeros(3, np.float32)
+        self.odom_rot = np.array([0, 0, 0, 1], np.float32)
+        self.odom_prev_pos = np.zeros(3, np.float32)
+        self.odom_prev_rot = np.array([0, 0, 0, 1], np.float32)
+        self.odom_last = 0.0
+        self.imu_last = 0.0
+        self.imu_quat = np.array([0, 0, 0, 1], np.float32)
+
+        f = dict(dtype=torch.float32, device=dev)
+        self.state_prev_pos = torch.tensor(mean_pos, **f)
+        self.state_prev_rot = mq.from_rpy(torch.tensor(mean_rpy, **f))
+        self._tf_seeded = False
+
+        self.tf_tolerance_base = 0.0
+        self.localized_last = 0.0
+        self.cnt_measure = 0
+        self.status = Status()
+        self.entropy = 0.0
+
+        self._accum_points: list = []
+        self._accum_origins: list = []
+        self._accum_odom: list = []
+        self._accum_stamps: list = []
+        self._n_active_host = p.num_particles
+        self.last_aux: Optional[dict] = None     # host copy of the last step's aux
+        self._resample_sigma = torch.tensor(
+            [p.resample_var_x, p.resample_var_y, p.resample_var_z,
+             p.resample_var_roll, p.resample_var_pitch, p.resample_var_yaw], **f)
+        self._expansion_sigma = torch.tensor(
+            [p.expansion_var_x, p.expansion_var_y, p.expansion_var_z,
+             p.expansion_var_roll, p.expansion_var_pitch, p.expansion_var_yaw],
+            **f)
+
+    # ------------------------------------------------------------ randomness
+
+    def _normals(self, n: int, d: int) -> torch.Tensor:
+        return torch.randn((n, d), generator=self._gen, device=self.device)
+
+    def draw_step(self, like_keep, beam_keep) -> StepDraws:
+        """This step's draws from the engine's generator."""
+        p = self.params
+        cap = self.pstate.capacity
+        return StepDraws(
+            like_idx=draw_uniform_indices(like_keep, p.likelihood.num_points,
+                                          self._gen),
+            beam_idx=draw_uniform_indices(beam_keep, p.beam.num_points,
+                                          self._gen),
+            u0=torch.rand((), generator=self._gen, device=self.device),
+            resample_normals=self._normals(cap, 6),
+            noise_normals=self._normals(cap, 4),
+            expand_normals=self._normals(cap, 6),
+        )
+
+    # ---------------------------------------------------------------- map I/O
+
+    def load_map(self, points: np.ndarray, labels: Optional[np.ndarray] = None):
+        """cbMapcloud / loadMapCloud (src/mcl_3dl.cpp:127-140, 1150-1170)."""
+        self.map = MapData.build(points, self.params, labels, device=self.device)
+        self.has_map = True
+        self._accum_clear()
+        self.accum.reset()
+        return self.map
+
+    # ------------------------------------------------------------- pose seed
+
+    def initial_pose(self, pos, rot, cov66) -> None:
+        """initialpose re-seed (cbPosition, src/mcl_3dl.cpp:155-198)."""
+        rot = np.asarray(rot, np.float64)
+        if abs(float(np.sum(rot * rot)) - 1.0) > 0.1:
+            raise ValueError("initialpose orientation must be a unit quaternion")
+        rpy = mqn.to_rpy(rot)
+        cap = self.pstate.capacity
+        self.pstate = st.init_multivariate(
+            self._normals(cap, 6), cap, self.params.num_particles,
+            np.asarray(pos, np.float32), np.asarray(rpy, np.float32), cov66)
+        self.pstate = reset_error_integrals(self.pstate)
+        self._n_active_host = self.params.num_particles
+
+    # ------------------------------------------------------------ odom / imu
+
+    def odometry(self, pos, rot, t: float) -> None:
+        """cbOdom (src/mcl_3dl.cpp:200-247)."""
+        pos = np.asarray(pos, np.float32)
+        rot = np.asarray(rot, np.float32)
+        self.odom_pos, self.odom_rot = pos, rot
+        if not self.has_odom:
+            self.odom_prev_pos, self.odom_prev_rot = pos, rot
+            self.odom_last = t
+            self.has_odom = True
+            return
+        dt = t - self.odom_last
+        if dt < 0.0 or dt > 5.0:
+            self.has_odom = False
+            return
+        if dt > 0.05:
+            p = self.params
+            delta = OdomDelta.from_poses(self.odom_prev_pos, self.odom_prev_rot,
+                                         pos, rot, dt, device=self.device)
+            self.pstate = predict_differential_drive(
+                self.pstate, delta, p.odom_err_integ_lin_tc,
+                p.odom_err_integ_ang_tc)
+            self.odom_last = t
+            self.odom_prev_pos, self.odom_prev_rot = pos, rot
+        if self.params.fake_imu:
+            accel = mqn.rotate(rot, np.array([0.0, 0.0, 1.0], np.float32))
+            self.imu(accel, rot, t)
+
+    def imu(self, acc, orientation, t: float) -> None:
+        """cbImu (src/mcl_3dl.cpp:941-1018); ``acc`` and ``orientation`` in
+        the base_link frame."""
+        self.f_acc, acc_f = mf.filter_step(
+            self.f_acc, torch.as_tensor(acc, dtype=torch.float32))
+        if not self.has_imu:
+            self.f_acc = mf.filter_set(self.f_acc, torch.zeros(3))
+            self.imu_last = t
+            self.has_imu = True
+            return
+        dt = t - self.imu_last
+        if dt < 0.0 or dt > 5.0:
+            self.has_imu = False
+            return
+        if dt > 0.05:
+            acc_measure = (acc_f / torch.linalg.vector_norm(acc_f)).to(self.device)
+            self.imu_quat = np.asarray(orientation, np.float32)
+            lik = imu_gravity_likelihood(self.pstate.rot, acc_measure,
+                                         self.params.acc_var)
+            self.pstate, _ = pf.measure(self.pstate, lik)
+            self.imu_last = t
+            if self.params.fake_odom:
+                self.odometry(np.zeros(3, np.float32), self.imu_quat, t)
+
+    # ----------------------------------------------------------- scan intake
+
+    def _accum_clear(self) -> None:
+        self._accum_points = []
+        self._accum_origins = []
+        self._accum_odom = []
+        self._accum_stamps = []
+
+    def push_cloud(self, frame_id: str, points_odom: np.ndarray,
+                   sensor_origin_odom: np.ndarray,
+                   t: float) -> Optional[MeasureResult]:
+        """cbCloud (src/mcl_3dl.cpp:248-302): points already in the odom
+        frame; returns a MeasureResult when this cloud triggered a
+        measurement."""
+        if not self.has_map or not self.has_odom:
+            return None
+        self.status = Status(status=FilterStatus.NORMAL, error=ErrorCode.NORMAL,
+                             convergence_status=ConvergenceStatus.NORMAL)
+        result: list = [None]
+
+        def process():
+            result[0] = self._measure(t)
+
+        def accumulate(msg):
+            pts, origin = msg
+            self._accum_points.append(np.asarray(pts, np.float64).reshape(-1, 3))
+            self._accum_origins.append(np.asarray(origin, np.float64).reshape(3))
+            self._accum_odom.append((self.odom_pos.copy(), self.odom_rot.copy()))
+            self._accum_stamps.append(t)
+            return True
+
+        self.accum.push(frame_id, (points_odom, sensor_origin_odom), process,
+                        accumulate, self._accum_clear)
+        return result[0]
+
+    def measure_direct(self, points_base, origins_base, labels, t: float):
+        """Measure a base_link-frame cloud directly (test API)."""
+        return self._measure_base(points_base, labels, origins_base, t)
+
+    def _measure(self, t: float) -> Optional[MeasureResult]:
+        """measure() preamble (src/mcl_3dl.cpp:304-360): odom -> base_link
+        at the last accumulated cloud's stamp, then the device step."""
+        if not self._accum_points:
+            self.status.error = ErrorCode.POINTS_NOT_FOUND
+            return None
+        odom_pos, odom_rot = self._accum_odom[-1]
+        inv_rot = mqn.inv(odom_rot)
+        pts = np.concatenate(self._accum_points, axis=0)
+        labels = np.concatenate([np.full((len(p),), i, np.int32)
+                                 for i, p in enumerate(self._accum_points)])
+        pts_base = mqn.rotate(inv_rot, pts - odom_pos).astype(np.float32)
+        origins = np.stack(self._accum_origins, axis=0)
+        origins_base = mqn.rotate(inv_rot, origins - odom_pos).astype(np.float32)
+        return self._measure_base(pts_base, labels, origins_base,
+                                  self._accum_stamps[-1],
+                                  odom=(odom_pos, odom_rot))
+
+    # ------------------------------------------------------- measurement step
+
+    def prepare_cloud(self, pts_base, labels, origins_base):
+        """VoxelGrid downsample (src/mcl_3dl.cpp:363-367) and padding to a
+        power-of-two bucket: ``(pts_ds, (cloud, cloud_label, cloud_valid,
+        origins))`` with the tensors on the engine's device."""
+        p = self.params
+        pts_ds, attrs = voxel_downsample(
+            pts_base, (p.downsample_x, p.downsample_y, p.downsample_z),
+            attrs=np.asarray(labels, np.float64)[:, None])
+        lbl_ds = np.round(attrs[:, 0]).astype(np.int64)
+        n_pts = pts_ds.shape[0]
+        bucket = _bucket(max(n_pts, 1), 256)
+        cloud = np.zeros((bucket, 3), np.float32)
+        cloud[:n_pts] = pts_ds
+        cloud_label = np.zeros((bucket,), np.int64)
+        cloud_label[:n_pts] = np.clip(lbl_ds, 0, max(len(origins_base) - 1, 0))
+        cloud_valid = np.zeros((bucket,), bool)
+        cloud_valid[:n_pts] = True
+        origins = np.zeros((max(len(origins_base), 1), 3), np.float32)
+        if len(origins_base):
+            origins[: len(origins_base)] = origins_base
+        return pts_ds, tuple(torch.as_tensor(a).to(self.device)
+                             for a in (cloud, cloud_label, cloud_valid, origins))
+
+    def _measure_base(self, pts_base, labels, origins_base, t,
+                      odom=None) -> Optional[MeasureResult]:
+        self.cnt_measure += 1
+        if self.cnt_measure % max(int(self.params.skip_measure), 1) != 0:
+            return None
+        p = self.params
+        if self._n_active_host > p.num_particles:
+            raise NotImplementedError("global mode: later slice")
+        ts = time.monotonic()
+        dev = self.device
+        _, cloud = self.prepare_cloud(pts_base, labels, origins_base)
+
+        op = odom[0] if odom is not None else self.odom_pos
+        orot = odom[1] if odom is not None else self.odom_rot
+        if not self._tf_seeded:
+            # seed the TF smoothers with the current map->odom at the first
+            # measurement (the configure-time identity seed only holds when
+            # odometry starts near identity)
+            pp = self.state_prev_pos.cpu().numpy().astype(np.float64)
+            pr = self.state_prev_rot.cpu().numpy().astype(np.float64)
+            mrot = mqn.mul(pr, mqn.inv(np.asarray(orot, np.float64)))
+            mpos = pp - mqn.rotate(mrot, np.asarray(op, np.float64))
+            self.f_ang = mf.filter_set(self.f_ang, np.float32(mqn.to_rpy(mrot)))
+            self.f_pos = mf.filter_set(self.f_pos, np.float32(mpos))
+            self._tf_seeded = True
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+
+        (self.pstate, self.f_pos, self.f_ang, self.state_prev_pos,
+         self.state_prev_rot, aux) = self._measurement_step(
+            self.pstate, self.map.df, self.map.df_beam, *cloud,
+            put(op), put(orot),
+            self.state_prev_pos, self.state_prev_rot, self.f_pos, self.f_ang,
+            False,
+            (p.std_warn_thresh_xy, p.std_warn_thresh_z, p.std_warn_thresh_yaw))
+        aux = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+               for k, v in aux.items()}
+        self.last_aux = aux
+
+        if p.debug_finite_checks:
+            for name in ("e_pos", "e_rot", "pub_pos", "pub_rot", "cov"):
+                if not np.isfinite(aux[name]).all():
+                    raise FloatingPointError(
+                        f"non-finite {name} in measurement step: {aux[name]}")
+        if aux["points_not_found"]:
+            self.status.error = ErrorCode.POINTS_NOT_FOUND
+            return MeasureResult(status=self.status,
+                                 elapsed=time.monotonic() - ts)
+
+        # host-side epilogue (src/mcl_3dl.cpp:853-897)
+        if aux["expanded"]:
+            self.status.status = FilterStatus.EXPANSION_RESETTING
+        dt = min(max(t - self.localized_last, 0.0), 1.0)
+        self.localize_rate, tol = mf.filter_step(self.localize_rate, dt)
+        self.tf_tolerance_base = float(tol)
+        self.localized_last = t
+        if aux["large_std"]:
+            self.status.convergence_status = ConvergenceStatus.LARGE_STD_VALUE
+        elif aux["converged"]:
+            self.status.convergence_status = ConvergenceStatus.CONVERGED
+        self.entropy = float(aux["entropy"])
+        self.status.match_ratio = float(aux["match_ratio_max"])
+        self.status.particle_size = self._n_active_host
+        self.status.entropy = self.entropy
+        return MeasureResult(
+            stamp=t, pos=aux["pub_pos"], rot=aux["pub_rot"], cov=aux["cov"],
+            map_to_odom_pos=aux["map_to_odom_pos"],
+            map_to_odom_rot=aux["map_to_odom_rot"],
+            raw_pos=aux["e_pos"], raw_rot=aux["e_rot"],
+            match_ratio_min=float(aux["match_ratio_min"]),
+            match_ratio_max=float(aux["match_ratio_max"]),
+            entropy=self.entropy, jumped=bool(aux["jumped"]),
+            expanded=bool(aux["expanded"]), converged=bool(aux["converged"]),
+            large_std=bool(aux["large_std"]),
+            particle_size=self._n_active_host, status=self.status,
+            elapsed=time.monotonic() - ts)
+
+    def sample_points(self, cloud, cloud_label, cloud_valid,
+                      draws: Optional[StepDraws] = None):
+        """Clip and sample (likelihood .cpp:79-103 / beam :98-122):
+        ``(like_pts, like_valid, beam_pts, beam_labels, beam_valid,
+        points_not_found, draws)``."""
+        p = self.params
+        lp, bp = p.likelihood, p.beam
+        like_keep = cloud_valid & clip_mask(
+            cloud, lp.clip_near, lp.clip_far, lp.clip_z_min, lp.clip_z_max)
+        beam_keep = cloud_valid & clip_mask(
+            cloud, bp.clip_near, bp.clip_far, bp.clip_z_min, bp.clip_z_max)
+        if draws is None:
+            draws = self.draw_step(like_keep, beam_keep)
+        like_pts, like_valid, _ = sample_uniform(cloud, like_keep, draws.like_idx)
+        beam_pts, beam_valid, beam_idx = sample_uniform(cloud, beam_keep,
+                                                        draws.beam_idx)
+        if not p.use_beam_model:
+            beam_valid = torch.zeros_like(beam_valid)
+        return (like_pts, like_valid, beam_pts, cloud_label[beam_idx],
+                beam_valid, torch.sum(like_keep) == 0, draws)
+
+    def group(self, pos, rot, mask, df, df_beam, like_pts, like_valid,
+              beam_pts, beam_labels, beam_valid, origins):
+        """The pose-grouped sort both models share (df and df_beam live on
+        one grid): ``(rmat, grouped_like, grouped_beam)`` with
+        ``grouped_like = (stats, layout, lo, fits)`` and ``grouped_beam =
+        (stats, layout, lo, fits, vp)``, or ``None`` where a model is not
+        eligible.  Each model keeps its own boxes and ``fits`` flag; both
+        flags come to the host in one transfer, and the layout is built
+        only if one of them fits."""
+        p = self.params
+        n_cap = pos.shape[0]
+        rmat = mq.rotation_matrix(mq.normalize(rot))
+        steps_g = beam_num_steps(p)
+        use_grouped_beam = (p.use_beam_model and n_cap % og.TILE == 0
+                            and steps_g + 1 <= 64)
+        share_like = n_cap % og.TILE == 0
+        if not (share_like or use_grouped_beam):
+            return rmat, None, None
+        cap = og.default_overflow_cap(n_cap)
+        stats = og.group_stats(pos, rmat, rot, df.weights, float(df.cell),
+                               df.origin, mask)
+        under_cap = stats.n_over <= cap
+        flags = []
+        if share_like:
+            lo_l, fits_kg_l = og.group_boxes(stats, like_pts, df.shape)
+            flags.append(torch.all(fits_kg_l | ~like_valid[:, None]) & under_cap)
+        if use_grouped_beam:
+            vp = BeamVirtualPoints(beam_pts, beam_labels, beam_valid, origins,
+                                   p.map_grid_min, p.beam.hit_range, steps_g)
+            lo_b, fits_kg_b = og.group_boxes(stats, vp.vpf, df_beam.shape)
+            flags.append(torch.all(fits_kg_b | ~vp.chainf[:, None]) & under_cap)
+        fits = torch.stack(flags).tolist()           # the one host read
+        layout = og.build_layout(stats, cap) if any(fits) else None
+        return (rmat,
+                (stats, layout, lo_l, fits[0]) if share_like else None,
+                (stats, layout, lo_b, fits[-1], vp) if use_grouped_beam else None)
+
+    def _measure_models(self, pos, rot, mask, df, df_beam, like_pts,
+                        like_valid, beam_pts, beam_labels, beam_valid,
+                        origins):
+        """Per-particle measurement likelihoods (measure_func,
+        src/mcl_3dl.cpp:402-425): ``(lik_l, qual_l, lik_b, tier_like,
+        tier_beam)``."""
+        p = self.params
+        lp, bp = p.likelihood, p.beam
+        rmat, grouped_like, grouped_beam = self.group(
+            pos, rot, mask, df, df_beam, like_pts, like_valid, beam_pts,
+            beam_labels, beam_valid, origins)
+
+        lik_l, qual_l, tier_like = likelihood_measure(
+            df, pos, rot, like_pts, like_valid, lp.match_dist_min,
+            lp.match_dist_flat, lp.match_weight, active=mask, rmat=rmat,
+            grouped=grouped_like)
+
+        if not p.use_beam_model:
+            return lik_l, qual_l, torch.ones_like(lik_l), tier_like, -1
+        kw = dict(map_grid_min=p.map_grid_min, map_grid_max=p.map_grid_max,
+                  hit_range=bp.hit_range, beam_likelihood_min=bp.beam_likelihood,
+                  num_points_default=bp.num_points,
+                  sin_total_ref=math.sin(bp.ang_total_ref),
+                  add_penalty_short_only_mode=bp.add_penalty_short_only_mode)
+        if grouped_beam is not None and grouped_beam[3]:
+            lik_b = beam_measure_grouped(
+                df_beam, pos, rot, beam_pts, beam_labels, beam_valid, origins,
+                num_steps=beam_num_steps(p), grouped=grouped_beam, **kw)
+            tier_beam = 0
+        else:
+            num_steps = min(bp.max_sphere_steps,
+                            int(math.ceil((bp.clip_far + bp.hit_range)
+                                          / p.map_grid_min)) + 2)
+            lik_b, _ = beam_measure(df_beam, pos, rot, beam_pts, beam_labels,
+                                    beam_valid, origins, num_steps=num_steps,
+                                    **kw)
+            tier_beam = 2
+        return lik_l, qual_l, lik_b, tier_like, tier_beam
+
+    def _measurement_step(self, state: ParticleState, df, df_beam, cloud,
+                          cloud_label, cloud_valid, origins, odom_pos,
+                          odom_rot, prev_pos, prev_rot, f_pos, f_ang,
+                          is_global_fix: bool, std_warn_thresh,
+                          draws: Optional[StepDraws] = None):
+        """The measurement update (src/mcl_3dl.cpp:363-893) in non-global
+        mode.  Returns ``(state, f_pos, f_ang, prev_pos, prev_rot, aux)``;
+        ``draws`` defaults to the engine generator's."""
+        p = self.params
+        mask = state.active_mask()
+        (like_pts, like_valid, beam_pts, beam_labels, beam_valid,
+         points_not_found, draws) = self.sample_points(
+            cloud, cloud_label, cloud_valid, draws)
+
+        # --- per-particle likelihoods (measure_func, src/mcl_3dl.cpp:402-425)
+        lik_l, qual_l, lik_b, tier_like, tier_beam = self._measure_models(
+            state.pos, state.rot, mask, df, df_beam, like_pts, like_valid,
+            beam_pts, beam_labels, beam_valid, origins)
+        odom_error = normal_likelihood(
+            torch.linalg.vector_norm(state.odom_err_lin, dim=-1),
+            p.odom_err_integ_lin_sigma)
+        likelihood = lik_l * lik_b * odom_error
+        match_ratio_min = torch.min(torch.where(mask, qual_l, torch.inf))
+        match_ratio_max = torch.max(torch.where(mask, qual_l, -torch.inf))
+        state2, entropy = pf.measure(state, likelihood)
+
+        # --- bias toward the previous pose (src/mcl_3dl.cpp:428-450)
+        lin_diff = torch.linalg.vector_norm(state2.pos - prev_pos, dim=-1)
+        ang_diff = mq.angle(mq.mul(state2.rot, mq.inv(prev_rot)))
+        p_bias = (normal_likelihood(lin_diff, p.bias_var_dist)
+                  * normal_likelihood(ang_diff, p.bias_var_ang) + 1e-6)
+        state2 = pf.bias(state2, p_bias)
+        e_pos, e_rot = pf.expectation_biased(state2)
+        e_rot = mq.normalize(e_rot)
+        e_max = pf.max_particle(state2)
+
+        # --- map->odom + jump detection (src/mcl_3dl.cpp:630-661)
+        map_rot = mq.mul(e_rot, mq.inv(odom_rot))
+        map_pos = e_pos - mq.rotate(map_rot, odom_pos)
+        jump_dist = torch.linalg.vector_norm(e_pos - prev_pos)
+        jump_ang = mq.angle(mq.mul(mq.inv(e_rot), prev_rot))
+        jumped = (jump_dist > p.jump_dist) | (torch.abs(jump_ang) > p.jump_ang)
+        state2 = st.where(jumped, reset_error_integrals(state2), state2)
+
+        # --- TF output smoothing (src/mcl_3dl.cpp:662-684)
+        rpy = mq.to_rpy(map_rot)
+        f_ang2 = mf.where(jumped, mf.filter_set(f_ang, rpy), f_ang)
+        f_pos2 = mf.where(jumped, mf.filter_set(f_pos, map_pos), f_pos)
+        f_ang2, rpy_s = mf.filter_step(f_ang2, rpy)
+        f_pos2, map_pos_s = mf.filter_step(f_pos2, map_pos)
+        map_rot_s = mq.from_rpy(rpy_s)
+        pub_rot = mq.mul(map_rot_s, odom_rot)
+        pub_pos = map_pos_s + mq.rotate(map_rot_s, odom_pos)
+
+        # --- covariance + convergence (src/mcl_3dl.cpp:704-751)
+        cov = pf.covariance(state2)
+        thr = [float(x) for x in std_warn_thresh]
+        large_std = (not is_global_fix) & (
+            (torch.sqrt(cov[0, 0] + cov[1, 1]) > thr[0])
+            | (torch.sqrt(cov[2, 2]) > thr[1])
+            | (torch.sqrt(cov[5, 5]) > thr[2]))
+        fix_ang = torch.sqrt(cov[3, 3] + cov[4, 4] + cov[5, 5])
+        fix_dist = torch.sqrt(cov[0, 0] + cov[1, 1] + cov[2, 2])
+        converged = ~large_std & (fix_dist < p.fix_dist) & (
+            torch.abs(fix_ang) < p.fix_ang)
+
+        # --- resample + noise redraw (src/mcl_3dl.cpp:809-825)
+        state3 = pf.resample(state2, draws.u0, draws.resample_normals,
+                             self._resample_sigma.to(state.device))
+        scale = torch.tensor([p.odom_err_lin_lin, p.odom_err_lin_ang,
+                              p.odom_err_ang_lin, p.odom_err_ang_ang],
+                             dtype=torch.float32, device=state.device)
+        state3 = state3._replace(noise=draws.noise_normals * scale)
+
+        # --- expansion resetting (src/mcl_3dl.cpp:853-864)
+        expanded = match_ratio_max < p.match_ratio_thresh
+        state4 = st.where(expanded, pf.add_noise(
+            state3, draws.expand_normals,
+            self._expansion_sigma.to(state.device)), state3)
+
+        # all-filtered-out guard: leave the filter untouched (:385-391)
+        final_state = st.where(points_not_found, state, state4)
+        aux = {
+            "e_pos": e_pos, "e_rot": e_rot,
+            "pub_pos": pub_pos, "pub_rot": pub_rot,
+            "map_to_odom_pos": map_pos_s, "map_to_odom_rot": map_rot_s,
+            "cov": cov, "entropy": entropy,
+            "match_ratio_min": match_ratio_min,
+            "match_ratio_max": match_ratio_max,
+            "jumped": jumped, "expanded": expanded,
+            "large_std": large_std, "converged": converged,
+            "did_resize": False,
+            "points_not_found": points_not_found,
+            "tier_like": tier_like, "tier_beam": tier_beam,
+            "e_max_odom_err_lin": e_max["odom_err_lin"],
+            "e_max_odom_err_ang": e_max["odom_err_ang"],
+        }
+        return (final_state,
+                mf.where(points_not_found, f_pos, f_pos2),
+                mf.where(points_not_found, f_ang, f_ang2),
+                torch.where(points_not_found, prev_pos, e_pos),
+                torch.where(points_not_found, prev_rot, e_rot),
+                aux)

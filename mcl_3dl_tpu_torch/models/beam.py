@@ -1,0 +1,272 @@
+"""Beam LIDAR measurement model (src/lidar_measurement_model_beam.cpp:
+124-192) with the kd-tree-style raycast (raycasts/
+raycast_using_kdtree.h:58-109) over the distance field.
+
+Beam classification: first collision -> TOTAL_REFLECTION if grazing,
+else HIT within ``hit_range`` of the scan endpoint, else SHORT; no
+collision -> LONG.  Score = beam_likelihood_min^(penalized/num) floored
+at beam_likelihood_min (:146-152).
+
+Tier 0 (``beam_measure_grouped``) runs kernel K2 over the pose-grouped
+layout shared with the likelihood model and rescores envelope outliers
+with the exact fixed march; tier 2 (``beam_measure``) is the sphere
+trace ``raycast_df``, whose loop exit is checked on the host.  The DDA
+raycast over an occupancy grid is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mcl_3dl_tpu_torch.map.distance_field import DistanceField
+from mcl_3dl_tpu_torch.math import f32
+from mcl_3dl_tpu_torch.math import quat as mq
+from mcl_3dl_tpu_torch.ops import grouped as og
+
+
+class BeamStatus:
+    HIT = 0
+    SHORT = 1
+    LONG = 2
+    TOTAL_REFLECTION = 3
+
+
+def _cdiv(x, c):
+    """``x / c`` with ``c`` as a device scalar: a true f32 division (a
+    Python-scalar divisor becomes a reciprocal multiply on CUDA)."""
+    return x / torch.full((), f32(c), device=x.device)
+
+
+def _ray(begin, end):
+    seg = end - begin
+    length = torch.linalg.vector_norm(seg, dim=-1)
+    return length, seg / torch.clamp(length, min=1e-12)[..., None]
+
+
+def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
+               map_grid_max: float, hit_tolerance: float, num_steps: int):
+    """Sphere-traced kd-tree-style raycast against the distance field:
+    ``(collision, collision_pos [..., 3], sin_angle)``.
+
+    The field value bounds the weighted distance to the nearest map
+    point, so stepping ``(d - radius) / ||W u||`` (at least ``grid_min``)
+    can never skip a collision; a probe with ``d <= radius`` is a
+    collision as in the reference's fixed march.  The loop stops when
+    every ray has hit or passed ``floor((|ray| + tol) / grid) * grid``,
+    checked on the host each iteration, or after ``num_steps``.  The
+    incidence estimate is the field drop over the entry -> hit span.
+    """
+    radius = f32(2.0 ** 0.5 * map_grid_max / 2.0)
+    length, direction = _ray(begin, end)
+    max_t = torch.floor(_cdiv(length + f32(hit_tolerance), map_grid_min)) \
+        * f32(map_grid_min)
+    shape = begin.shape[:-1]
+    dev = begin.device
+    w_vec = torch.tensor(df.weights, dtype=torch.float32, device=dev)
+    wu = torch.linalg.vector_norm(direction * w_vec, dim=-1)
+    d_entry_thr = f32(float(df.trunc) * 0.99)
+
+    found = torch.zeros(shape, dtype=torch.bool, device=dev)
+    t = torch.full(shape, f32(map_grid_min), device=dev)
+    cpos = torch.zeros(shape + (3,), device=dev)
+    d0_hit = torch.zeros(shape, device=dev)
+    t_entry = torch.full(shape, -1.0, device=dev)
+    d_entry = torch.full(shape, f32(df.trunc), device=dev)
+    s = 0
+    while s < num_steps and bool(torch.any(~found & (t < max_t))):
+        pos = begin + direction * t[..., None]
+        d = df.sample_nearest(pos)
+        active = (t < max_t) & ~found
+        enter = active & (d < d_entry_thr) & (t_entry < 0.0)
+        t_entry = torch.where(enter, t, t_entry)
+        d_entry = torch.where(enter, d, d_entry)
+        hit_now = (d <= radius) & active
+        cpos = torch.where(hit_now[..., None], pos, cpos)
+        d0_hit = torch.where(hit_now, d, d0_hit)
+        advance = torch.clamp((d - radius) / torch.clamp(wu, min=1e-6),
+                              min=f32(map_grid_min))
+        t = torch.where(active & ~hit_now, t + advance, t)
+        found = found | hit_now
+        s += 1
+
+    span = torch.clamp(torch.linalg.vector_norm(
+        cpos - (begin + direction * t_entry[..., None]), dim=-1), min=1e-6)
+    sin_ang = torch.where(
+        found & (t_entry >= 0.0) & (span > f32(map_grid_min)),
+        torch.clamp((d_entry - d0_hit) / span, 0.0, 1.0), 1.0)
+    return found, cpos, torch.where(found, sin_ang, 0.0)
+
+
+def raycast_fixed(df: DistanceField, begin, end, map_grid_min: float,
+                  map_grid_max: float, hit_tolerance: float, num_steps: int):
+    """The reference's fixed-step march (raycast_using_kdtree.h:58-109):
+    probes at t = i*grid for 1 <= i < floor((|ray|+tol)/grid), collision
+    at field <= sqrt(2)*grid_max/2, incidence over the entry -> hit span.
+    The semantics K2 reproduces over the sorted layout."""
+    radius = f32(2.0 ** 0.5 * map_grid_max / 2.0)
+    d_entry_thr = f32(float(df.trunc) * 0.99)
+    length, direction = _ray(begin, end)
+    l_b = torch.floor(_cdiv(length + f32(hit_tolerance), map_grid_min))
+    shape = begin.shape[:-1]
+    dev = begin.device
+    grid = f32(map_grid_min)
+    found = torch.zeros(shape, dtype=torch.bool, device=dev)
+    t_hit = torch.zeros(shape, device=dev)
+    d_hit = torch.zeros(shape, device=dev)
+    t_entry = torch.full(shape, -1.0, device=dev)
+    d_entry = torch.full(shape, f32(df.trunc), device=dev)
+    for s in range(num_steps + 1):
+        i = float(s - 1)
+        ti = f32(i * grid)      # one f32 product, as i * grid_min in f32
+        d = df.sample_nearest(begin + direction * ti)
+        elig = (i >= 1.0) & (i < l_b) & ~found
+        enter = elig & (d < d_entry_thr) & (t_entry < 0.0)
+        t_entry = torch.where(enter, ti, t_entry)
+        d_entry = torch.where(enter, d, d_entry)
+        hit_now = elig & (d <= radius)
+        t_hit = torch.where(hit_now, ti, t_hit)
+        d_hit = torch.where(hit_now, d, d_hit)
+        found = found | hit_now
+
+    span = t_hit - t_entry
+    sin_ang = torch.where(
+        found & (t_entry >= 0.0) & (span > grid),
+        torch.clamp((d_entry - d_hit) / torch.clamp(span, min=f32(1e-6)),
+                    0.0, 1.0), 1.0)
+    sin_ang = torch.where(found, sin_ang, 0.0)
+    cpos = begin + direction * t_hit[..., None]
+    cpos = torch.where(found[..., None], cpos, 0.0)
+    return found, cpos, sin_ang
+
+
+class BeamVirtualPoints:
+    """Particle-independent probe schedule of the grouped fixed march:
+    probe ``i`` of beam ``b`` is the virtual point ``org_b + dir_b *
+    i*grid`` (rotation preserves ray length).  ``vpf``/``chainf`` are the
+    [B*nprobe] virtual points / chain validity."""
+
+    def __init__(self, points, origin_idx, valid, origins, map_grid_min,
+                 hit_range, num_steps):
+        self.nprobe = num_steps + 1                            # i = -1..S-1
+        sensor_org = origins[origin_idx]                       # [B, 3]
+        self.length, dirb = _ray(sensor_org, points)
+        i_vals = torch.arange(self.nprobe, dtype=torch.float32,
+                              device=points.device) - 1.0
+        vp = (sensor_org[:, None, :]
+              + dirb[:, None, :] * (i_vals[None, :, None] * f32(map_grid_min)))
+        l_b = torch.floor(_cdiv(self.length + f32(hit_range), map_grid_min))
+        chain = (i_vals[None, :] < l_b[:, None]) & valid[:, None]
+        self.bb = points.shape[0]
+        self.vpf = vp.reshape(self.bb * self.nprobe, 3)
+        self.chainf = chain.reshape(self.bb * self.nprobe)
+
+
+def _penalized(found, sin_ang, dist_sq, valid, *, hit_range, sin_total_ref,
+               long_pen):
+    graze = found & (sin_ang <= f32(sin_total_ref))
+    short = found & ~graze & (dist_sq >= f32(hit_range * hit_range))
+    long_p = ~found & bool(long_pen)
+    return (short | long_p) & valid
+
+
+def _overflow_beam_pen(df_beam, pos, rot, over_idx, points, origin_idx,
+                       valid, origins, *, map_grid_min, map_grid_max,
+                       hit_range, sin_total_ref, long_pen, num_steps):
+    """Exact penalized-beam counts [cap] of the envelope outliers: the
+    fixed march on the [cap, B] subset (sentinel rows read particle
+    N-1; they are dropped on scatter)."""
+    idx = torch.clamp(over_idx, max=pos.shape[0] - 1)
+    posc = pos[idx]
+    rmatc = mq.rotation_matrix(mq.normalize(rot[idx]))
+    sensor_org = origins[origin_idx]                           # [B, 3]
+    begins = torch.einsum("bj,cij->cbi", sensor_org, rmatc) + posc[:, None, :]
+    ends = torch.einsum("bj,cij->cbi", points, rmatc) + posc[:, None, :]
+    found, cpos, sin_ang = raycast_fixed(
+        df_beam, begins, ends, map_grid_min, map_grid_max, hit_range,
+        num_steps)
+    dist_sq = torch.sum((ends - cpos) ** 2, dim=-1)
+    pen = _penalized(found, sin_ang, dist_sq, valid[None, :],
+                     hit_range=hit_range, sin_total_ref=sin_total_ref,
+                     long_pen=long_pen)
+    return torch.sum(pen, dim=-1).to(torch.float32)
+
+
+def _score(n_pen, valid, beam_likelihood_min, num_points_default):
+    per_beam = beam_likelihood_min ** (1.0 / float(num_points_default))
+    score = torch.clamp(per_beam ** n_pen, min=f32(beam_likelihood_min))
+    return torch.where(torch.sum(valid) > 0, score, 1.0)
+
+
+def grouped_beam_inputs(df_beam: DistanceField, stats, lo, vp, valid,
+                        map_grid_max):
+    """K2's inputs besides the layout: ``(meta, pts_fp, aux, skip,
+    tables [B, nprobe, G, R, ZW])``."""
+    trunc = float(df_beam.trunc)
+    radius = 2.0 ** 0.5 * map_grid_max / 2.0
+    tables, z_used = og.extract_tables(
+        df_beam.field2d, df_beam.shape[1], df_beam.field2d.shape[1], lo,
+        vp.chainf)
+    aux = torch.stack([torch.round(vp.length * 65536.0).to(torch.int32),
+                       valid.to(torch.int32)], dim=-1).contiguous()
+    # a block whose minimum reachable distance is at or above the entry
+    # threshold and above the collision radius can neither enter nor hit;
+    # a probe whose blocks all qualify is empty space and skipped whole
+    min_d = og.block_min_dist(tables, trunc, lo, z_used,
+                              og.query_bands(stats, vp.vpf))
+    skip = og.pack_block_skip((min_d >= f32(trunc * 0.99)) & (min_d > f32(radius)))
+    tables = tables.reshape(vp.bb, vp.nprobe, og.G_GROUPS, og.R_ROWS, og.ZW)
+    return og.make_meta(lo, z_used), og.points_fp(vp.vpf), aux, skip, tables
+
+
+def beam_measure_grouped(df_beam: DistanceField, pos, rot, points,
+                         origin_idx, valid, origins, *, map_grid_min,
+                         map_grid_max, hit_range, beam_likelihood_min,
+                         num_points_default, sin_total_ref,
+                         add_penalty_short_only_mode, num_steps, grouped):
+    """Tier 0: the beam likelihood [N] through kernel K2 over the sorted
+    layout ``grouped = (stats, layout, lo, fits, vp)`` (``fits`` True),
+    with the envelope outliers rescored exactly."""
+    stats, layout, lo, _, vp = grouped
+    long_pen = not add_penalty_short_only_mode
+    meta, pfp, aux, skip, tables = grouped_beam_inputs(
+        df_beam, stats, lo, vp, valid, map_grid_max)
+    npen_sorted = og.grouped_beam_pen(
+        layout.A, layout.tile_group, meta, pfp, aux, skip, tables,
+        nprobe=vp.nprobe, trunc=float(df_beam.trunc), grid_min=map_grid_min,
+        radius=2.0 ** 0.5 * map_grid_max / 2.0, hit_range=hit_range,
+        sin_total_ref=sin_total_ref, long_pen=long_pen, tol=hit_range)
+    n_pen = npen_sorted[layout.dest]
+    n_pen_of = _overflow_beam_pen(
+        df_beam, pos, rot, layout.over_idx, points, origin_idx, valid,
+        origins, map_grid_min=map_grid_min, map_grid_max=map_grid_max,
+        hit_range=hit_range, sin_total_ref=sin_total_ref, long_pen=long_pen,
+        num_steps=num_steps)
+    n_pen = og.scatter_overflow(n_pen, layout.over_idx, n_pen_of)
+    return _score(n_pen, valid, beam_likelihood_min, num_points_default)
+
+
+def beam_measure(df_beam: DistanceField, pos, rot, points, origin_idx,
+                 valid, origins, *, map_grid_min, map_grid_max, hit_range,
+                 beam_likelihood_min, num_points_default, sin_total_ref,
+                 add_penalty_short_only_mode, num_steps):
+    """Tier 2: ``(likelihood [N], status [N, B])`` through the sphere
+    trace ``raycast_df`` on every (particle, beam)."""
+    rmat = mq.rotation_matrix(mq.normalize(rot))
+    ends = torch.einsum("bj,nij->nbi", points, rmat) + pos[:, None, :]
+    sensor_org = origins[origin_idx]
+    begins = torch.einsum("bj,nij->nbi", sensor_org, rmat) + pos[:, None, :]
+    collision, cpos, sin_ang = raycast_df(
+        df_beam, begins, ends, map_grid_min, map_grid_max, hit_range,
+        num_steps)
+    dist_sq = torch.sum((ends - cpos) ** 2, dim=-1)
+    graze = sin_ang <= f32(sin_total_ref)
+    status = torch.where(
+        collision,
+        torch.where(graze, BeamStatus.TOTAL_REFLECTION,
+                    torch.where(dist_sq < f32(hit_range ** 2), BeamStatus.HIT,
+                                BeamStatus.SHORT)),
+        BeamStatus.LONG)
+    penalized = (status == BeamStatus.SHORT) | (
+        (not add_penalty_short_only_mode) & (status == BeamStatus.LONG))
+    n_pen = torch.sum(penalized & valid[None, :], dim=-1).to(torch.float32)
+    return _score(n_pen, valid, beam_likelihood_min, num_points_default), status

@@ -1,0 +1,71 @@
+"""Packaging of the port: it imports neither JAX nor the JAX package, and
+its engine runs on the CUDA device unless the caller asks for the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)   # several test workers share the CPU
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "mcl_3dl_tpu_torch"
+
+_STEP = r"""
+import sys
+import numpy as np
+import mcl_3dl_tpu_torch as m
+from mcl_3dl_tpu_torch import worlds
+p = m.Params(num_particles=1024, likelihood=m.LikelihoodParams(num_points=4),
+             beam=m.BeamParams(clip_far=2.0, clip_z_min=-1.0, clip_z_max=1.0))
+eng = m.MCL3DL(p, device="cpu")
+eng.load_map(worlds.world_map())
+pts = worlds.scan(np.random.default_rng(0), 128)
+res = eng.measure_direct(pts, np.array([[0.0, 0.0, worlds.SENSOR_Z]], np.float32),
+                         np.zeros(len(pts), np.int32), 0.1)
+assert np.isfinite(res.pos).all()
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "jaxlib"
+             or k == "mcl_3dl_tpu" or k.startswith("mcl_3dl_tpu."))
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_port_step_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", _STEP], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    line = [s for s in out.stdout.splitlines() if s.startswith("LOADED:")][-1]
+    assert line == "LOADED:", line
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "mcl_3dl_tpu", "__graft_entry__"), (
+            f"{path.relative_to(ROOT)} imports {name}")
+
+
+def test_engine_defaults_to_cuda():
+    from mcl_3dl_tpu_torch import MCL3DL, Params
+
+    if torch.cuda.is_available():
+        assert MCL3DL(Params(num_particles=64)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MCL3DL(Params(num_particles=64))
