@@ -21,7 +21,17 @@ time):
    slot whose value the caller keeps, then timed beside its bound;
 5. where a steady step's time goes: each layer timed on the final state,
    ``push_cloud`` over 20 more scans, and one step under
-   ``torch.profiler`` for the device-busy share.
+   ``torch.profiler`` for the device-busy share;
+6. the lookup microbenchmarks (kernels G1-G10, ``mcl_3dl_tpu_torch/tools``)
+   at the JAX scripts' sizes: launch counts zeroed, the three tools run
+   (``exp_gather`` with ``--risky``; each times its kernels and PyTorch
+   library calls over 25 launches), counts read; then each kernel's whole
+   output held equal (``torch.equal``) to its plain version, and the plain
+   version timed.
+
+Times are medians of CUDA-event timings (``tools.time_ms``); bounds are
+``tools.bound``: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
+whichever is longer.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power
 limit, the one before it the kernel JSON; the last line is
@@ -38,8 +48,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-F32_OPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 NUM_PARTICLES = 1 << 20
 N_SCANS = 10                   # pushes after the tracking re-seed
 # initial pose wide in x/y, tight in attitude: the likelihood model's box
@@ -54,24 +62,6 @@ def sh(cmd):
     out = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True, check=False)
     return out.stdout.strip()
-
-
-def cuda_ms(fn, iters):
-    """Median milliseconds of ``fn`` over ``iters`` launches (CUDA events)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def profile_step(eng, scan, origin, card):
@@ -101,6 +91,52 @@ def profile_step(eng, scan, origin, card):
           f" {len(events)} distinct ops {card}", flush=True)
 
 
+def lookup_phase(card):
+    """Phase 6: drive the three lookup tools with the launch counts zeroed
+    (each times its kernels and library calls, 25 launches a median),
+    then hold every kernel's whole output against its plain version and
+    time the plain version.  Returns the kernels' JSON rows (G10 at S=8,
+    the grouped kernels' tile height)."""
+    import torch
+    from mcl_3dl_tpu_torch.ops import gather_bench as ogb
+    from mcl_3dl_tpu_torch.tools import (exp_gather, exp_gather2,
+                                         exp_rowsel_shape, time_ms)
+
+    for w in ogb.WRAPPERS:
+        w.launches = 0
+    lookups = (exp_gather.main(risky=True) + exp_gather2.main()
+               + exp_rowsel_shape.main())
+    launches = {w.__name__: w.launches for w in ogb.WRAPPERS}
+    assert all(n > 0 for n in launches.values()), launches
+    rows, seen = [], set()
+    for e in lookups:
+        if e.wrapper is None:
+            continue                 # a library row: its line is the tool's
+        got, want = e.run(), e.plain()
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), (
+            f"{e.tag} {e.name} {e.note}: kernel != plain")
+        err = float((got.double() - want.double()).abs().max())
+        plain_ms = time_ms(e.plain, 3)
+        lib = (f", {e.library_label} {e.library_ms:.4f} ms"
+               if e.library_ms is not None else "")
+        print(f"phase 6 {e.tag} {e.name}{' (' + e.note + ')' if e.note else ''}:"
+              f" equal on {got.numel()} outputs, {e.ms:.4f} ms, "
+              f"{e.lookups / e.ms / 1e6:.3f} G lookups/s (bound {e.bound_ms:.4f}"
+              f" ms by {e.bound_by}), plain {plain_ms:.3f} ms{lib}, launches "
+              f"{launches[e.name]} {card}", flush=True)
+        if e.name in seen:
+            continue
+        seen.add(e.name)
+        rows.append(dict(name=e.name, route="cuda",
+                         source="mcl_3dl_tpu_torch/csrc/gather_bench.cu",
+                         replaces=e.replaces, launches=launches[e.name],
+                         max_abs_err=err, ms=e.ms, plain_ms=plain_ms,
+                         bound_ms=e.bound_ms, bound_by=e.bound_by,
+                         library_ms=e.library_ms))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -115,6 +151,7 @@ def main() -> int:
     from mcl_3dl_tpu_torch.ops import build
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
+    from mcl_3dl_tpu_torch.tools import bound, time_ms
 
     # ---- phase 1: device facts
     name = torch.cuda.get_device_name(0)
@@ -135,8 +172,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build(verbose=True)
     build.library()
-    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc, 2 sources"
-          " in parallel + link)", flush=True)
+    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc, "
+          f"{len(build.SOURCES)} sources in parallel + link)", flush=True)
 
     # ---- phase 3: the main path through the public entry points
     params = Params(num_particles=NUM_PARTICLES, use_beam_model=True)
@@ -229,10 +266,9 @@ def main() -> int:
             a, b = a[sel], b[sel]
             assert torch.equal(a, b), f"{kname}: kernel != plain"
             err = max(err, float((a - b).abs().max()))
-        ms = cuda_ms(kernel, 25)
-        plain_ms = cuda_ms(plain, 3)
-        bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-        by = "bytes" if bytes_ / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+        ms = time_ms(kernel, 25)
+        plain_ms = time_ms(plain, 3)
+        bound_ms, by = bound(bytes_, ops)
         results.append(dict(name=kname, route="cuda", source=src,
                             replaces=replaces, launches=launches_n,
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -324,17 +360,17 @@ def main() -> int:
     group_args = (st.pos, st.rot, mask, df, eng.map.df_beam, like_pts,
                   like_valid, beam_pts, beam_labels, beam_valid, cloud_t[3])
     split = {
-        "group stats + boxes + layout": cuda_ms(lambda: eng.group(*group_args), 5),
-        "like tables + skip words": cuda_ms(lambda: grouped_like_inputs(
+        "group stats + boxes + layout": time_ms(lambda: eng.group(*group_args), 5),
+        "like tables + skip words": time_ms(lambda: grouped_like_inputs(
             df, stats, lo_l, like_pts, like_valid, lp.match_dist_min), 5),
         "K1 like_score": kms["like_score"],
-        "like overflow rescore": cuda_ms(like_rescore, 5),
-        "beam tables + skip words": cuda_ms(lambda: grouped_beam_inputs(
+        "like overflow rescore": time_ms(like_rescore, 5),
+        "beam tables + skip words": time_ms(lambda: grouped_beam_inputs(
             eng.map.df_beam, stats, lo_b, vp, beam_valid, p.map_grid_max), 5),
         "K2 beam_pen": kms["beam_pen"],
-        "beam overflow rescore": cuda_ms(beam_rescore, 5),
+        "beam overflow rescore": time_ms(beam_rescore, 5),
     }
-    models_ms = cuda_ms(lambda: eng._measure_models(*group_args), 5)
+    models_ms = time_ms(lambda: eng._measure_models(*group_args), 5)
     split["measure_models total"] = models_ms
     split["rest of push_cloud (sampling, PF tail, host)"] = step_s * 1e3 - models_ms
     print("phase 5 split (ms): " + "; ".join(
@@ -358,6 +394,9 @@ def main() -> int:
           f"{times[-1] * 1e3:.2f} ms, {NUM_PARTICLES * (96 + 3) / statistics.median(times):.4e}"
           f" particle-point evals/s {card}", flush=True)
     profile_step(eng, scan, origin, card)
+
+    # ---- phase 6: the lookup microbenchmarks at the JAX scripts' sizes
+    results += lookup_phase(card)
 
     print(json.dumps({"kernels": results}))
     print(smi)

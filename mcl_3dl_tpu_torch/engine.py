@@ -89,7 +89,7 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "MCL3DL runs on a CUDA device by default and none is "
+                "the port runs on a CUDA device by default and none is "
                 "available; pass device='cpu' to run the plain versions")
         device = "cuda"
     return torch.device(device)

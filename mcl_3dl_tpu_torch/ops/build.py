@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("grouped.cu", "local_gather.cu")
+SOURCES = ("grouped.cu", "local_gather.cu", "gather_bench.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -34,6 +34,10 @@ _SIGNATURES = {
     "mcl_like_score": [_P] * 8 + [_I] * 4 + [_F] * 6 + [_P],
     "mcl_beam_pen": [_P] * 8 + [_I] * 6 + [_F] * 9 + [_P],
     "mcl_local_score": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P],
+    "mcl_row_gather": [_P] * 3 + [_I] * 4 + [_P],
+    "mcl_flat_gather": [_P] * 3 + [_I] * 4 + [_P],
+    "mcl_col_gather": [_P] * 3 + [_I] * 4 + [_P],
+    "mcl_rowsel_accumulate": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lib = None

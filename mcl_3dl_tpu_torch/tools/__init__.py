@@ -1,0 +1,148 @@
+"""The port's lookup microbenchmarks: the counterparts of the JAX
+package's gather experiments in ``tools/``, under the same file names.
+
+    python -m mcl_3dl_tpu_torch.tools.exp_gather [--risky]
+    python -m mcl_3dl_tpu_torch.tools.exp_gather2
+    python -m mcl_3dl_tpu_torch.tools.exp_rowsel_shape
+
+Each module builds its inputs from ``numpy.random.default_rng(0)`` at the
+JAX script's shapes (``lookups(device, ...)``) and ``main`` times each
+experiment, one line each: milliseconds, G lookups/s, the byte bound and
+the card's ``nvidia-smi`` name and power limit; it returns the
+experiments with their times in ``ms`` and ``library_ms``.  They run on
+the CUDA device unless called with ``device="cpu"``, which times the
+plain versions on the host (not a device number).
+
+``time_ms`` and ``bound`` are also the timer and the roofline of
+``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from mcl_3dl_tpu_torch.engine import resolve_device
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_OPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+
+
+@dataclass
+class Lookup:
+    """One experiment: a kernel and its plain version, or a library row
+    (``wrapper`` None: ``run`` is the library call, a yardstick)."""
+
+    tag: str                    # G1..G10, or A/B for the XLA baselines
+    name: str
+    replaces: str               # file:line of the TPU kernel or baseline
+    run: Callable
+    plain: Optional[Callable]
+    wrapper: Optional[Callable]
+    lookups: int
+    nbytes: int                 # table, indices and output, once each
+    flops: int = 0              # f32 arithmetic besides the index math
+    library: Optional[Callable] = None
+    library_label: str = ""
+    note: str = ""
+    ms: Optional[float] = None          # set by ``run``
+    library_ms: Optional[float] = None  # set by ``run`` where ``library`` is
+
+    @property
+    def bound_ms(self) -> float:
+        return bound(self.nbytes, self.flops)[0]
+
+    @property
+    def bound_by(self) -> str:
+        return bound(self.nbytes, self.flops)[1]
+
+
+def bound(nbytes, flops=0):
+    """The least time of the work on the card, ``(ms, "bytes" or
+    "operations")``: the larger of its bytes over the memory rate and its
+    f32 operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def kernel_lookup(tag, replaces, wrapper, args, kw=None, **fields) -> Lookup:
+    """A ``Lookup`` of ``wrapper(*args, **kw)``; its plain version gets
+    ``args`` only."""
+    kw = kw or {}
+    return Lookup(tag, wrapper.__name__, replaces, lambda: wrapper(*args, **kw),
+                  lambda: wrapper.plain(*args), wrapper, **fields)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def to_device(device):
+    return lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def card(device) -> str:
+    """``nvidia-smi`` name and power limit, or a note that no card ran."""
+    if device.type != "cuda":
+        return "no card: plain versions on the host"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters, device="cuda") -> float:
+    """Median milliseconds of ``fn`` over ``iters`` calls after one
+    warm-up: CUDA events on the card, the host clock on the CPU."""
+    device = torch.device(device)
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def run(lookups, device, iters=25):
+    """Time each experiment into its ``ms`` (and ``library_ms``) and print
+    its line; returns ``lookups``."""
+    where = card(device)
+    for e in lookups:
+        e.ms = ms = time_ms(e.run, iters, device)
+        kind = ("library call" if e.wrapper is None else
+                "kernel" if device.type == "cuda" else "plain version")
+        lib = ""
+        if e.library is not None:
+            e.library_ms = time_ms(e.library, iters, device)
+            lib = f", {e.library_label} {e.library_ms:.4f} ms"
+        note = f" ({e.note})" if e.note else ""
+        print(f"{e.tag} {e.name} [{kind}, {e.replaces}]: {ms:.4f} ms on "
+              f"{device.type}, {e.lookups / ms / 1e6:.3f} G lookups/s, bound "
+              f"{e.bound_ms:.4f} ms by {e.bound_by} ({e.nbytes} B at 3.35 TB/s)"
+              f"{lib}{note} [{where}]", flush=True)
+    return lookups
+
+
+def entry(lookups_fn, device=None, iters=25, **sizes):
+    """``main`` of a tool: the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    return run(lookups_fn(device, **sizes), device, iters)

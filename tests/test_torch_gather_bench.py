@@ -1,0 +1,259 @@
+"""Parity of the port's lookup microbenchmarks with the Pallas kernel
+bodies of the JAX package's gather experiments, on the CPU.
+
+The JAX scripts define their kernels inside ``main()``/``make(S)`` or run
+timings at import (``tools/exp_gather2.py``), so each body is taken out
+of the script's source with ``ast`` by name and run through
+``pl.pallas_call(..., interpret=True)`` with the script's own
+``BlockSpec``s, shrunk (16-32 rows, BQ 128 with nb 2, NQ 2048).  The
+port's side is each wrapper on CPU tensors, which takes its plain
+version.  G8's body (``k_transpose``) does not trace: it slices a loaded
+array with ``pl.ds`` (exp_gather2.py:79); its case holds the port against
+the body's own ``jnp`` operations outside Pallas.
+
+Tolerance: none.  Every kernel is a pure gather, and G10 adds its 16
+lookups in order from 0.0 as the JAX body does, so every result must be
+exactly equal.
+"""
+
+import ast
+import pathlib
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from mcl_3dl_tpu_torch.ops import gather_bench as ogb
+from mcl_3dl_tpu_torch.tools import exp_gather, exp_gather2, exp_rowsel_shape
+
+torch.set_num_threads(2)   # several test workers share the CPU
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+L = 128
+OFF = 5                    # wraps (idx + off) mod W for the top indices
+VMEM = dict(memory_space=pltpu.VMEM)
+
+
+def _body(script, name, **env):
+    """The kernel body ``name`` of ``tools/<script>``, defined in a
+    namespace holding jax, jnp, pl and ``env``."""
+    path = ROOT / "tools" / script
+    tree = ast.parse(path.read_text(), str(path))
+    node = next(n for n in ast.walk(tree)
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    ns = dict(jax=jax, jnp=jnp, pl=pl, **env)
+    exec(compile(ast.Module(body=[node], type_ignores=[]), str(path), "exec"),
+         ns)
+    return ns[name]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _row_case(name, width, dtype, rows=32, block=16):
+    """G1, G2, G4: ``pallas_call`` as in exp_gather.py:98-113."""
+    rng = np.random.default_rng(1)
+    if dtype == np.uint8:
+        tab = rng.integers(0, 255, (rows, width), dtype=np.uint8)
+    else:
+        tab = rng.standard_normal((rows, width)).astype(np.float32)
+    idx = rng.integers(0, width, (rows, L), dtype=np.int32)
+    i = (jnp.asarray(idx) + OFF) % width
+    got = pl.pallas_call(
+        _body("exp_gather.py", name),
+        out_shape=jax.ShapeDtypeStruct((rows, L), dtype),
+        grid=(rows // block,),
+        in_specs=[pl.BlockSpec((block, width), lambda b: (b, 0), **VMEM),
+                  pl.BlockSpec((block, L), lambda b: (b, 0), **VMEM)],
+        out_specs=pl.BlockSpec((block, L), lambda b: (b, 0), **VMEM),
+        interpret=True)(jnp.asarray(tab), i)
+    return got, (_t(tab), _t(idx), OFF)
+
+
+def case_g1():
+    got, args = _row_case("lane_kernel", L, np.float32)
+    return got, ogb.lane_gather(*args)
+
+
+def case_g2():
+    got, args = _row_case("wide_kernel", 512, np.float32)
+    return got, ogb.wide_gather(*args)
+
+
+def case_g4():
+    got, args = _row_case("lane_kernel_u8", L, np.uint8)
+    return got, ogb.lane_gather_u8(*args)
+
+
+def case_g3():
+    rng = np.random.default_rng(3)
+    rows, block = 32, 16
+    tab = rng.standard_normal((8, L)).astype(np.float32)
+    idx = rng.integers(0, 1024, (rows, L), dtype=np.int32)
+    i = (jnp.asarray(idx) + OFF) % 1024
+    got = pl.pallas_call(
+        _body("exp_gather.py", "twostage_kernel"),
+        out_shape=jax.ShapeDtypeStruct((rows, L), jnp.float32),
+        grid=(rows // block,),
+        in_specs=[pl.BlockSpec((8, L), lambda b: (0, 0), **VMEM),
+                  pl.BlockSpec((block, L), lambda b: (b, 0), **VMEM)],
+        out_specs=pl.BlockSpec((block, L), lambda b: (b, 0), **VMEM),
+        interpret=True)(jnp.asarray(tab), i)
+    return got, ogb.twostage_gather(_t(tab), _t(idx), OFF)
+
+
+def case_g5():
+    rng = np.random.default_rng(5)
+    tab = rng.standard_normal((L, L)).astype(np.float32)
+    idx = rng.integers(0, L, (L, L), dtype=np.int32)
+    i = (jnp.asarray(idx) + OFF) % L
+    got = pl.pallas_call(
+        _body("exp_gather.py", "sub_kernel"),
+        out_shape=jax.ShapeDtypeStruct((L, L), jnp.float32),
+        in_specs=[pl.BlockSpec((L, L), **VMEM), pl.BlockSpec((L, L), **VMEM)],
+        out_specs=pl.BlockSpec((L, L), **VMEM),
+        interpret=True)(jnp.asarray(tab), i)
+    return got, ogb.sub_gather(_t(tab), _t(idx), OFF)
+
+
+BQ, NB = 128, 2    # nb <= 2: interpret mode places the blocks right (see
+                   # exp_gather2.py:61, whose index map is off by BQ)
+
+
+def _gather2_inputs(seed):
+    rng = np.random.default_rng(seed)
+    tab = rng.random((L, L), np.float32)
+    idx = rng.integers(0, L * L, (NB, BQ, L), dtype=np.int32)
+    return tab, idx
+
+
+def _gather2_case(name, wrapper, seed):
+    """G6, G7, G9: ``mk`` of exp_gather2.py:53-64, index map included."""
+    tab, idx = _gather2_inputs(seed)
+    got = pl.pallas_call(
+        _body("exp_gather2.py", name, BQ=BQ),
+        grid=(NB,),
+        in_specs=[pl.BlockSpec((L, L), lambda b: (0, 0), **VMEM),
+                  pl.BlockSpec((1, BQ, L), lambda b: (b, 0, 0), **VMEM)],
+        out_specs=pl.BlockSpec((BQ, L), lambda b: (b * BQ, 0), **VMEM),
+        out_shape=jax.ShapeDtypeStruct((NB * BQ, L), jnp.float32),
+        interpret=True)(jnp.asarray(tab), jnp.asarray(idx))
+    return got, wrapper(_t(tab), _t(idx))
+
+
+def case_g6():
+    return _gather2_case("k_fancy", ogb.fancy_gather, 6)
+
+
+def case_g7():
+    return _gather2_case("k_sublane", ogb.sublane_gather, 7)
+
+
+def case_g9():
+    return _gather2_case("k_rowloop", ogb.rowloop_gather, 9)
+
+
+def case_g8():
+    """k_transpose's operations per 128-row chunk, outside Pallas:
+    ``take_along_axis(tab.T, chunk >> 7, axis=1)``."""
+    tab, idx = _gather2_inputs(8)
+    flat = jnp.asarray(idx).reshape(-1, L)
+    tt = jnp.asarray(tab).T
+    got = jnp.concatenate([
+        jnp.take_along_axis(tt, flat[c * L:(c + 1) * L] >> 7, axis=1)
+        for c in range(flat.shape[0] // L)])
+    return got, ogb.transpose_gather(_t(tab), _t(idx))
+
+
+def case_g10():
+    """``make(S)`` of exp_rowsel_shape.py:41-81 for S in {8, 16}."""
+    rng = np.random.default_rng(10)
+    r, nq, kk = 144, 2048, 16
+    tab = rng.uniform(0, 1, (r, L)).astype(np.float32)
+    rows = rng.integers(0, r, nq).astype(np.int32).reshape(-1, L)
+    lanes = rng.integers(0, L, nq).astype(np.int32).reshape(-1, L)
+    kern = _body("exp_rowsel_shape.py", "kern", R=r)
+    gots, ours = [], []
+    for s in (8, 16):
+        gots.append(pl.pallas_call(
+            partial(kern, kk=kk),
+            grid=(nq // (s * L),),
+            in_specs=[pl.BlockSpec((s, L), lambda t: (t, 0), **VMEM),
+                      pl.BlockSpec((s, L), lambda t: (t, 0), **VMEM),
+                      pl.BlockSpec((r, L), lambda t: (0, 0), **VMEM)],
+            out_specs=pl.BlockSpec((s, L), lambda t: (t, 0), **VMEM),
+            out_shape=jax.ShapeDtypeStruct((nq // L, L), jnp.float32),
+            interpret=True)(jnp.asarray(rows), jnp.asarray(lanes),
+                            jnp.asarray(tab)))
+        ours.append(ogb.rowsel_accumulate(_t(tab), _t(rows), _t(lanes), kk,
+                                          tile_rows=s))
+    return jnp.stack(gots), torch.stack(ours)
+
+
+CASES = {"G1": case_g1, "G2": case_g2, "G3": case_g3, "G4": case_g4,
+         "G5": case_g5, "G6": case_g6, "G7": case_g7, "G8": case_g8,
+         "G9": case_g9, "G10": case_g10}
+
+
+@pytest.mark.parametrize("tag", list(CASES))
+def test_port_matches_jax_body(tag):
+    got, ours = CASES[tag]()
+    got = np.asarray(got)
+    ours = ours.numpy()
+    assert ours.dtype == got.dtype and ours.shape == got.shape
+    assert np.array_equal(ours, got)
+    assert np.unique(ours).size > 1
+
+
+TOOLS = {"exp_gather": (exp_gather, dict(q=128 * 37, risky=True)),
+         "exp_gather2": (exp_gather2, dict(q=1 << 15, bq=128)),
+         "exp_rowsel_shape": (exp_rowsel_shape, dict(nq=2048, tiles=(8, 16)))}
+TAGS = {"exp_gather": ["A", "B", "G1", "G2", "G3", "G4", "G5"],
+        "exp_gather2": ["A", "G6", "G7", "G8", "G9"],
+        "exp_rowsel_shape": ["G10", "G10"]}
+
+
+@pytest.mark.parametrize("tool", list(TOOLS))
+def test_tool_main_on_cpu(tool, capsys):
+    mod, sizes = TOOLS[tool]
+    res = mod.main(device="cpu", iters=1, **sizes)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [e.tag for e in res] == TAGS[tool]
+    assert all(e.ms > 0 for e in res)
+    assert all((e.library_ms is None) == (e.library is None) for e in res)
+    assert [s.split()[0] for s in lines] == TAGS[tool]
+    for s in lines:
+        assert " ms on cpu, " in s and " G lookups/s, bound " in s
+        assert "[no card: plain versions on the host]" in s
+
+
+@pytest.mark.parametrize("tool", list(TOOLS))
+def test_library_rows_compute_the_function(tool):
+    """Each library yardstick computes its kernel's function (G10's is
+    one pass of the 16)."""
+    mod, sizes = TOOLS[tool]
+    for e in mod.lookups(torch.device("cpu"), **sizes):
+        if e.wrapper is None or e.library is None:
+            continue
+        want = e.plain().reshape(-1)
+        lib = e.library().reshape(-1)
+        if e.tag == "G10":
+            acc = torch.zeros_like(lib)
+            for _ in range(16):
+                acc = acc + lib
+            lib = acc
+        assert torch.equal(lib, want), e.tag
+
+
+@pytest.mark.parametrize("tool", list(TOOLS))
+def test_tool_needs_cuda_by_default(tool, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod, sizes = TOOLS[tool]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(iters=1, **sizes)

@@ -1,6 +1,8 @@
 """CUDA kernels K1, K2, K3 against their plain PyTorch versions on the
 card: bit-equal on every slot whose value the caller keeps (the kernels are
 built with -fmad=false and keep the plain versions' operation order).
+The lookup kernels G1-G10 (``ops/gather_bench.py``), at small sizes with
+ragged block edges, must equal their plain versions everywhere.
 
 Skipped without a CUDA device.  On the card, with no JAX installed:
 
@@ -19,7 +21,9 @@ from mcl_3dl_tpu_torch.models.beam import (BeamVirtualPoints,
                                            grouped_beam_inputs)
 from mcl_3dl_tpu_torch.models.likelihood import grouped_like_inputs
 from mcl_3dl_tpu_torch.ops import grouped as og
+from mcl_3dl_tpu_torch.ops import gather_bench as ogb
 from mcl_3dl_tpu_torch.ops import local_gather as olg
+from mcl_3dl_tpu_torch.tools import exp_gather, exp_gather2, exp_rowsel_shape
 
 torch.set_num_threads(2)   # several test workers share the CPU
 
@@ -122,3 +126,36 @@ def test_wrapper_refuses_wrong_dtype(cuda):
     with pytest.raises(ValueError):
         olg.local_score(tables, lidx, match_dist_min=MDM,
                         match_dist_flat=MDF, match_weight=MW)
+
+
+# small sizes whose row counts leave partial blocks and partial grids
+_LOOKUPS = {"exp_gather": lambda d: exp_gather.lookups(d, q=128 * 37,
+                                                       risky=True),
+            "exp_gather2": lambda d: exp_gather2.lookups(d, q=3 << 14, bq=128),
+            "exp_rowsel_shape": lambda d: exp_rowsel_shape.lookups(
+                d, nq=128 * 77, tiles=(8, 64))}
+_TOOL_OF = dict({t: "exp_gather" for t in ("G1", "G2", "G3", "G4", "G5")},
+                G6="exp_gather2", G7="exp_gather2", G8="exp_gather2",
+                G9="exp_gather2", G10="exp_rowsel_shape")
+
+
+@pytest.mark.parametrize("tag", list(_TOOL_OF))
+def test_lookup_kernel_matches_plain(cuda, tag):
+    for e in _LOOKUPS[_TOOL_OF[tag]](cuda):
+        if e.tag != tag:
+            continue
+        n0 = e.wrapper.launches
+        got = e.run()
+        assert e.wrapper.launches == n0 + 1
+        want = e.plain()
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), e.name
+
+
+def test_refused_lookup_launch_raises(cuda):
+    """A table beyond the 227 KB of shared memory a block may have: the
+    launch is refused and the wrapper raises."""
+    tab = torch.zeros((1 << 16,), device=cuda)
+    idx = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ogb.fancy_gather(tab, idx)
