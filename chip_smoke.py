@@ -8,8 +8,9 @@ time):
 
 1. device facts: GPU, power limit, CUDA runtime, nvcc, triton;
 2. build of the CUDA kernels with nvcc (first use), with its seconds;
-3. the main path: ``MCL3DL(Params(num_particles=1<<20), device="cuda")``
-   on the flagship room world, stationary odometry and scans through
+3. the main path (``tools/grouped_pairs.engine`` and ``drive``):
+   ``MCL3DL(Params(num_particles=1<<20), device="cuda")`` on the
+   flagship room world, stationary odometry and scans through
    ``push_cloud``.  A first ``initial_pose`` spread wide in x/y (0.2 m)
    and tight in attitude is measured once, through the likelihood
    model's tier-1 box kernel K3; then ``initial_pose`` with the tracking
@@ -48,13 +49,6 @@ import time
 
 import numpy as np
 
-NUM_PARTICLES = 1 << 20
-N_SCANS = 10                   # pushes after the tracking re-seed
-# initial pose wide in x/y, tight in attitude: the likelihood model's box
-# tier (kernel K3) scores the first scan after it
-COARSE_COV = np.diag([0.2 ** 2, 0.2 ** 2, 0.002 ** 2, 0.002 ** 2,
-                      0.002 ** 2, 0.005 ** 2])
-CLOUD_POINTS = 4096
 STEADY_STEPS = 20              # extra scans timed at steady state
 
 
@@ -144,7 +138,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from mcl_3dl_tpu_torch import MCL3DL, Params, worlds
+    from mcl_3dl_tpu_torch import worlds
     from mcl_3dl_tpu_torch.models.beam import grouped_beam_inputs
     from mcl_3dl_tpu_torch.models.likelihood import (box_queries, box_tables,
                                                      grouped_like_inputs)
@@ -152,6 +146,7 @@ def main() -> int:
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
     from mcl_3dl_tpu_torch.tools import bound, time_ms
+    from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
 
     # ---- phase 1: device facts
     name = torch.cuda.get_device_name(0)
@@ -176,35 +171,19 @@ def main() -> int:
           f"{len(build.SOURCES)} sources in parallel + link)", flush=True)
 
     # ---- phase 3: the main path through the public entry points
-    params = Params(num_particles=NUM_PARTICLES, use_beam_model=True)
-    eng = MCL3DL(params, device="cuda")
-    eng.load_map(worlds.world_map())
-    ident = np.array([0.0, 0.0, 0.0, 1.0])
+    eng = gp.engine()
     rng = np.random.default_rng(0)
     origin = np.array([0.0, 0.0, worlds.SENSOR_Z])
+    ident = np.array([0.0, 0.0, 0.0, 1.0])
     kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
                "local": olg.local_score}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
-    eng.initial_pose(np.zeros(3), ident, COARSE_COV)
     steps = []
-    t = 0.0
-    for i in range(2 + N_SCANS):
-        if i == 2:
-            eng.initial_pose(np.zeros(3), ident, worlds.TRACKING_COV)
-        eng.odometry(np.zeros(3), ident, t)
-        cloud = worlds.scan(rng, CLOUD_POINTS)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res = eng.push_cloud("lidar", cloud, origin, t)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t1
-        if res is not None:
-            aux = eng.last_aux
-            steps.append((dt, aux["tier_like"], aux["tier_beam"], res))
-        t += 0.1
+    t = gp.drive(eng, rng, on_step=lambda dt, res: steps.append(
+        (dt, eng.last_aux["tier_like"], eng.last_aux["tier_beam"], res)))
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     print("phase 3 per step (tier_like, tier_beam, raw z): "
@@ -224,34 +203,22 @@ def main() -> int:
     raw_err = float(np.linalg.norm(last.raw_pos))
     steady = [dt for dt, a, b, _ in steps if (a, b) == (0, 0)][1:]
     step_s = statistics.median(steady)
-    print(f"phase 3 main path: {NUM_PARTICLES} particles, {len(steps)} "
+    print(f"phase 3 main path: {gp.NUM_PARTICLES} particles, {len(steps)} "
           f"measurements, launches {launches}, published pose err {pos_err:.4f} m"
           f" / {rot_err:.4f} rad (raw mean {raw_err:.4f} m), push_cloud median {step_s * 1e3:.2f} ms over "
           f"{len(steady)} steady steps, "
-          f"{NUM_PARTICLES * (96 + 3) / step_s:.4e} particle-point evals/s, "
+          f"{gp.NUM_PARTICLES * (96 + 3) / step_s:.4e} particle-point evals/s, "
           f"peak memory {peak / 2**30:.2f} GiB {card}", flush=True)
 
     # ---- phase 4: each kernel against its plain version, main-path shapes
-    p = params
+    p = eng.params
     lp, bp = p.likelihood, p.beam
-    scan = worlds.scan(rng, CLOUD_POINTS)
-    _, cloud_t = eng.prepare_cloud(scan, np.zeros(len(scan), np.int64),
-                                   origin[None].astype(np.float32))
+    scan = worlds.scan(rng, gp.CLOUD_POINTS)
+    inp = gp.kernel_inputs(eng, scan)
     st = eng.pstate
-    mask = st.active_mask()
-    (like_pts, like_valid, beam_pts, beam_labels, beam_valid, _,
-     _) = eng.sample_points(*cloud_t[:3])
-    rmat, g_like, g_beam = eng.group(
-        st.pos, st.rot, mask, eng.map.df, eng.map.df_beam, like_pts,
-        like_valid, beam_pts, beam_labels, beam_valid, cloud_t[3])
-    assert g_like[3] and g_beam[3], "kernel inputs need fitting boxes"
-    stats, layout, lo_l, _ = g_like
-    _, _, lo_b, _, vp = g_beam
     df = eng.map.df
-    # slots of in-envelope particles: the overflow bin's slots are
-    # rescored exactly by the caller, and there the kernel's whole-point
-    # skip (which the plain version does not take) is not a no-op
-    dest = layout.dest[stats.g != og.G_GROUPS - 1]
+    stats, layout, vp = inp.stats, inp.layout, inp.vp
+    like_pts, like_valid = inp.like_pts, inp.like_valid
     results = []
 
     def report(kname, src, replaces, kernel, plain, bytes_, ops, launches_n,
@@ -277,50 +244,21 @@ def main() -> int:
               f"{plain_ms:.2f} ms {card}", flush=True)
 
     # K1 at [nt, 12, 1024] x 96 points x 97 bins
-    meta, pfp, skipw, tables = grouped_like_inputs(df, stats, lo_l, like_pts,
-                                                   like_valid, lp.match_dist_min)
-    kw1 = dict(match_dist_min=lp.match_dist_min,
-               match_dist_flat=lp.match_dist_flat,
-               match_weight=lp.match_weight, trunc=float(df.trunc))
-    nt = layout.A.shape[0]
-    tiles_per_bin = torch.bincount(layout.tile_group.long(),
-                                   minlength=og.G_GROUPS)
-    live = (skipw != og.SKIP_ALL) & (tiles_per_bin > 0)[None, :]
-    live_lookups = int((live.long() * tiles_per_bin[None, :]).sum()) * og.TILE
-    k1_bytes = (nt * 12 * og.TILE * 4 + nt * 4 + meta.numel() * 4
-                + pfp.numel() * 4 + skipw.numel() * 4
-                + int(live.sum()) * og.R_ROWS * og.ZW + 2 * nt * og.TILE * 4)
     report("like_score", "mcl_3dl_tpu_torch/csrc/grouped.cu",
            "mcl_3dl_tpu/ops/grouped.py:778 (_like_kernel)",
-           lambda: og.grouped_like_score(layout.A, layout.tile_group, meta, pfp,
-                                         skipw, tables, **kw1),
-           lambda: og.like_score_plain(layout.A, layout.tile_group, meta, pfp,
-                                       skipw, tables, **kw1),
-           k1_bytes, live_lookups * 25, launches["like"], dest)
+           lambda: og.grouped_like_score(*inp.like, **inp.like_kw),
+           lambda: og.like_score_plain(*inp.like, **inp.like_kw),
+           *inp.like_bound, launches["like"], inp.kept)
 
     # K2 at 3 beams x 61 probes x 97 bins
-    bmeta, bpfp, baux, bskip, btables = grouped_beam_inputs(
-        eng.map.df_beam, stats, lo_b, vp, beam_valid, p.map_grid_max)
-    kw2 = dict(nprobe=vp.nprobe, trunc=float(eng.map.df_beam.trunc),
-               grid_min=p.map_grid_min, radius=2.0 ** 0.5 * p.map_grid_max / 2.0,
-               hit_range=bp.hit_range,
-               sin_total_ref=float(np.sin(bp.ang_total_ref)),
-               long_pen=not bp.add_penalty_short_only_mode, tol=bp.hit_range)
-    blive = (bskip != og.SKIP_ALL) & (tiles_per_bin > 0)[None, :]
-    b_lookups = int((blive.long() * tiles_per_bin[None, :]).sum()) * og.TILE
-    k2_bytes = (nt * 12 * og.TILE * 4 + nt * 4 + bmeta.numel() * 4
-                + bpfp.numel() * 4 + baux.numel() * 4 + bskip.numel() * 4
-                + int(blive.sum()) * og.R_ROWS * og.ZW + nt * og.TILE * 4)
     report("beam_pen", "mcl_3dl_tpu_torch/csrc/grouped.cu",
            "mcl_3dl_tpu/ops/grouped.py:918 (_beam_kernel)",
-           lambda: (og.grouped_beam_pen(layout.A, layout.tile_group, bmeta,
-                                        bpfp, baux, bskip, btables, **kw2),),
-           lambda: (og.beam_pen_plain(layout.A, layout.tile_group, bmeta, bpfp,
-                                      baux, bskip, btables, **kw2),),
-           k2_bytes, b_lookups * 30, launches["beam"], dest)
+           lambda: (og.grouped_beam_pen(*inp.beam, **inp.beam_kw),),
+           lambda: (og.beam_pen_plain(*inp.beam, **inp.beam_kw),),
+           *inp.beam_bound, launches["beam"], inp.kept)
 
     # K3 at 96 points x 1M particles (tier-1 box tables of this state)
-    iq, lo3, ext = box_queries(df, st.pos, rmat, like_pts)
+    iq, lo3, ext = box_queries(df, st.pos, inp.rmat, like_pts)
     ltab, lidx = box_tables(df, iq, lo3, like_valid)
     del iq
     kw3 = dict(match_dist_min=lp.match_dist_min,
@@ -351,22 +289,23 @@ def main() -> int:
 
     def beam_rescore():
         return _overflow_beam_pen(
-            eng.map.df_beam, st.pos, st.rot, over, beam_pts, beam_labels,
-            beam_valid, cloud_t[3], map_grid_min=p.map_grid_min,
-            map_grid_max=p.map_grid_max, hit_range=bp.hit_range,
-            sin_total_ref=kw2["sin_total_ref"], long_pen=kw2["long_pen"],
-            num_steps=vp.nprobe - 1)
+            eng.map.df_beam, st.pos, st.rot, over, inp.beam_pts,
+            inp.beam_labels, inp.beam_valid, inp.cloud[3],
+            map_grid_min=p.map_grid_min, map_grid_max=p.map_grid_max,
+            hit_range=bp.hit_range,
+            sin_total_ref=inp.beam_kw["sin_total_ref"],
+            long_pen=inp.beam_kw["long_pen"], num_steps=vp.nprobe - 1)
 
-    group_args = (st.pos, st.rot, mask, df, eng.map.df_beam, like_pts,
-                  like_valid, beam_pts, beam_labels, beam_valid, cloud_t[3])
+    group_args = inp.group_args
     split = {
         "group stats + boxes + layout": time_ms(lambda: eng.group(*group_args), 5),
         "like tables + skip words": time_ms(lambda: grouped_like_inputs(
-            df, stats, lo_l, like_pts, like_valid, lp.match_dist_min), 5),
+            df, stats, inp.lo_l, like_pts, like_valid, lp.match_dist_min), 5),
         "K1 like_score": kms["like_score"],
         "like overflow rescore": time_ms(like_rescore, 5),
         "beam tables + skip words": time_ms(lambda: grouped_beam_inputs(
-            eng.map.df_beam, stats, lo_b, vp, beam_valid, p.map_grid_max), 5),
+            eng.map.df_beam, stats, inp.lo_b, vp, inp.beam_valid,
+            p.map_grid_max), 5),
         "K2 beam_pen": kms["beam_pen"],
         "beam overflow rescore": time_ms(beam_rescore, 5),
     }
@@ -380,7 +319,7 @@ def main() -> int:
     times, tiers = [], set()
     for _ in range(STEADY_STEPS + 1):
         eng.odometry(np.zeros(3), ident, t)
-        cloud = worlds.scan(rng, CLOUD_POINTS)
+        cloud = worlds.scan(rng, gp.CLOUD_POINTS)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         res = eng.push_cloud("lidar", cloud, origin, t)
@@ -391,7 +330,7 @@ def main() -> int:
     times = sorted(times[1:])
     print(f"phase 5 steady push_cloud over {len(times)} scans, tiers {tiers}:"
           f" median {statistics.median(times) * 1e3:.2f} ms, max "
-          f"{times[-1] * 1e3:.2f} ms, {NUM_PARTICLES * (96 + 3) / statistics.median(times):.4e}"
+          f"{times[-1] * 1e3:.2f} ms, {gp.NUM_PARTICLES * (96 + 3) / statistics.median(times):.4e}"
           f" particle-point evals/s {card}", flush=True)
     profile_step(eng, scan, origin, card)
 

@@ -519,6 +519,7 @@ def grouped_beam_pen(gp_A, tile_group, meta, pts_fp, aux, skip, tables, *,
             build.check(tables, "tables", torch.uint8,
                         (bb, nprobe, gg, R_ROWS, ZW), dev))
     npen = torch.empty((nt * TILE,), dtype=torch.float32, device=dev)
+    # the entry point zeroes npen, then the kernel adds each penalty
     build.launch("mcl_beam_pen", *args, npen.data_ptr(), nt * TILE, bb, nprobe,
                  gg, SKIP_ALL, int(bool(long_pen)), f32(trunc / 255.0),
                  f32(_PT_SCALE), f32(trunc), f32(grid_min), f32(radius),

@@ -142,6 +142,56 @@ def test_measurement_step_matches_jax(jax_world):
         assert bool(aux[key]) == bool(jaux[key]), key
 
 
+CREEP_SCANS = 6
+
+
+def test_consecutive_steps_track_jax(jax_world):
+    """Six consecutive measurement steps, each side carrying its own
+    state, filters and previous pose from one start, with JAX's draws
+    injected and a fresh scan each step: the port's raw pose (z included)
+    follows the JAX engine's, so a creep of the raw z over a drive is the
+    model's and not the port's.
+
+    Tolerances and why: tiers equal and 0/0 at every step; ``e_pos`` atol
+    1e-5 (as for one step: means summed in another order, boundary
+    particles scored differently, see the module docstring); ``e_rot`` atol
+    1e-4: in the first step, from the 0.05-0.1 rad wide start cloud, one
+    quaternion component differs by 4.3e-5, and from the second step on
+    the two agree to the last bit.  Both sides' raw z rises by ~2 cm over
+    these six scans while their ``e_pos`` agree to ~3e-8 m, so the creep
+    is the model's; a port fault in the step (bias, expectation,
+    resampling) would move the pose by millimetres or more.
+    """
+    eng_j, args = jax_world
+    eng = _port_engine(eng_j)
+    p = eng.params
+    thr = (p.std_warn_thresh_xy, p.std_warn_thresh_z, p.std_warn_thresh_yaw)
+    jargs = list(args)
+    state = convert.particle_state(*(_np(x) for x in args[0]))
+    fp, fa = (convert.filter_state(*(_np(x) for x in f)) for f in args[14:16])
+    prev_pos, prev_rot = _t(args[12]), _t(args[13])
+    labels, valid, origins = _t(args[6], np.int64), _t(args[7]), _t(args[9])
+    rng = np.random.default_rng(7)
+    for i in range(CREEP_SCANS):
+        cloud = ge._make_scan(rng, SMALL["cloud_points"])
+        jargs[1] = jax.random.PRNGKey(100 + i)
+        jargs[5] = jnp.asarray(cloud)
+        draws = _jax_draws(eng_j, jargs)
+        state, fp, fa, prev_pos, prev_rot, aux = eng._measurement_step(
+            state, eng.map.df, eng.map.df_beam, torch.as_tensor(cloud),
+            labels, valid, origins, _t(args[10]), _t(args[11]), prev_pos,
+            prev_rot, fp, fa, False, thr, draws=draws)
+        jout = eng_j._step(*jargs)
+        jaux = jout[-1]
+        jargs[0], jargs[14], jargs[15], jargs[12], jargs[13] = jout[:5]
+        assert (aux["tier_like"], aux["tier_beam"]) == (0, 0), i
+        assert (int(jaux["tier_like"]), int(jaux["tier_beam"])) == (0, 0), i
+        np.testing.assert_allclose(aux["e_pos"].numpy(), _np(jaux["e_pos"]),
+                                   atol=1e-5, err_msg=f"scan {i}")
+        np.testing.assert_allclose(aux["e_rot"].numpy(), _np(jaux["e_rot"]),
+                                   atol=1e-4, err_msg=f"scan {i}")
+
+
 def test_drive_converges_on_cpu():
     """Six scans through odometry + push_cloud: tiers 0/0 and a published
     pose within 0.05 m / 0.05 rad of the truth (the origin)."""
