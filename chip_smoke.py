@@ -22,13 +22,14 @@ time):
    slot whose value the caller keeps, then timed beside its bound;
 5. where a steady step's time goes: each layer timed on the final state,
    ``push_cloud`` over 20 more scans, and one step under
-   ``torch.profiler`` for the device-busy share;
+   ``torch.profiler`` for the device-busy share (run after phase 6);
 6. the lookup microbenchmarks (kernels G1-G10, ``mcl_3dl_tpu_torch/tools``)
    at the JAX scripts' sizes: launch counts zeroed, the three tools run
    (``exp_gather`` with ``--risky``; each times its kernels and PyTorch
-   library calls over 25 launches), counts read; then each kernel's whole
-   output held equal (``torch.equal``) to its plain version, and the plain
-   version timed.
+   library calls over 25 launches and splits a call into device time, from
+   a CUDA graph's replay, and host time, from 1000 back-to-back calls),
+   counts read; then each kernel's whole output held equal
+   (``torch.equal``) to its plain version, and the plain version timed.
 
 Times are medians of CUDA-event timings (``tools.time_ms``); bounds are
 ``tools.bound``: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
@@ -87,7 +88,8 @@ def profile_step(eng, scan, origin, card):
 
 def lookup_phase(card):
     """Phase 6: drive the three lookup tools with the launch counts zeroed
-    (each times its kernels and library calls, 25 launches a median),
+    (each times its kernels and library calls, 25 launches a median, and
+    splits a call into device and host time),
     then hold every kernel's whole output against its plain version and
     time the plain version.  Returns the kernels' JSON rows (G10 at S=8,
     the grouped kernels' tile height)."""
@@ -112,10 +114,12 @@ def lookup_phase(card):
             f"{e.tag} {e.name} {e.note}: kernel != plain")
         err = float((got.double() - want.double()).abs().max())
         plain_ms = time_ms(e.plain, 3)
-        lib = (f", {e.library_label} {e.library_ms:.4f} ms"
+        lib = (f", {e.library_label} {e.library_ms:.4f} ms (device "
+               f"{e.library_device_ms:.4f} + host {e.library_host_ms:.4f})"
                if e.library_ms is not None else "")
         print(f"phase 6 {e.tag} {e.name}{' (' + e.note + ')' if e.note else ''}:"
-              f" equal on {got.numel()} outputs, {e.ms:.4f} ms, "
+              f" equal on {got.numel()} outputs, {e.ms:.4f} ms (device "
+              f"{e.device_ms:.4f} + host {e.host_ms:.4f} a call), "
               f"{e.lookups / e.ms / 1e6:.3f} G lookups/s (bound {e.bound_ms:.4f}"
               f" ms by {e.bound_by}), plain {plain_ms:.3f} ms{lib}, launches "
               f"{launches[e.name]} {card}", flush=True)
@@ -332,10 +336,13 @@ def main() -> int:
           f" median {statistics.median(times) * 1e3:.2f} ms, max "
           f"{times[-1] * 1e3:.2f} ms, {gp.NUM_PARTICLES * (96 + 3) / statistics.median(times):.4e}"
           f" particle-point evals/s {card}", flush=True)
-    profile_step(eng, scan, origin, card)
 
     # ---- phase 6: the lookup microbenchmarks at the JAX scripts' sizes
     results += lookup_phase(card)
+
+    # phase 5's profiled step comes last: after a torch.profiler session
+    # the host path of every later launch reads slower, phase 6's included
+    profile_step(eng, scan, origin, card)
 
     print(json.dumps({"kernels": results}))
     print(smi)

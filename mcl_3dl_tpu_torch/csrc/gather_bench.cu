@@ -2,7 +2,7 @@
 //
 // They replace the Pallas kernels of the JAX package's gather experiments
 // (tools/exp_gather.py, tools/exp_gather2.py, tools/exp_rowsel_shape.py):
-// ten kernel bodies, covered here by four templated kernels.
+// ten kernel bodies, covered here by four families of templated kernels.
 //
 //   (a) mcl_row_gather         out[r, l] = tab[r, (idx[r, l] + off) mod W]
 //       G1 lane_kernel      tools/exp_gather.py:95  (call :100), f32, W 128
@@ -29,38 +29,56 @@
 //   * Indices are read as int4 and outputs written as float4 (uchar4 for
 //     u8): 16 B a thread, neighbouring threads on neighbouring addresses.
 //     The wrappers check 16-byte alignment.
-//   * A thread issues 8 loads (BATCH) before it uses any: in the copies
-//     of the tables into shared memory and in the index loads of (b), (c)
-//     and (d).  With one load at a time the few resident blocks of (b)
-//     and (c) wait on one memory latency per 16 bytes and cannot keep
+//   * A thread of a grid-stride loop ((b), (d), the transposed (c))
+//     issues BATCH 8 index loads before it uses any, and the table copies
+//     of (a), (b), (d) and the transposed (c) issue BATCH 16-byte loads
+//     before their stores.  With one load at a time the few resident
+//     blocks wait on one memory latency per 16 bytes and cannot keep
 //     enough bytes in flight to reach the card's bandwidth.
 //   * (a) stages the block's 16 table rows in shared memory with 16-byte
 //     loads, so each table byte crosses from device memory once, and
 //     gathers from there.  At W 512 the whole 256 MiB table is read,
 //     though the queries touch a quarter of it: a 128-query row touches
 //     nearly every 32-byte sector of its 2 KB table row anyway.
-//   * (b), (c) and (d) share one small table among all blocks.  It is
-//     copied into shared memory once per block: up to 66 KB, above the
-//     static 48 KB, so the entry points raise the kernel's dynamic
-//     shared-memory limit first (a refused launch never runs; every entry
-//     returns cudaGetLastError() and the wrapper raises on it).  (b) and
-//     (c) are grid-stride loops over as many blocks as fit on the card at
-//     once, so the copy is paid ~400 times, not once per query tile.
-//     G9 is the same function as G6; its kernel reads the table through
-//     L1/L2 with __ldg instead, so the pair measures shared memory
-//     against the cache for a 64 KB table.
-//   * (c) reads column j in lane j: conflict-free shared-memory banks.  In
-//     the transposed form all 32 lanes of a warp read column i mod 128,
-//     which in a row-major table is one bank; the table is staged
-//     transposed with a padded stride (129), so the lanes' random rows
-//     fall on random banks and the stores of the staging copy on distinct
-//     ones.
+//   * (b), (d) and the transposed (c) share one small table among all
+//     blocks and copy it into shared memory once per block: up to 72 KB,
+//     above the static 48 KB, so the kernel's dynamic shared-memory limit
+//     is raised first.  (b) and the transposed (c) are grid-stride loops
+//     over as many blocks as fit on the card at once, so the copy is paid
+//     ~400 times, not once per query tile.  G9 is the same function as
+//     G6; its kernel reads the table through L1/L2 with __ldg instead, so
+//     the pair measures shared memory against the cache for a 64 KB table.
+//   * Shared-memory banks: in (a), (b) and (d) the 32 lanes of a read
+//     take random entries, so they fall on random banks and a read costs
+//     as many passes as the most lanes on one bank (about 3.5 for 32
+//     uniform lanes).  The transposed (c), G8: all 32 lanes of a warp read
+//     column i mod 128, which in a row-major table is one bank; the table
+//     is staged transposed with a padded stride (129), so the lanes'
+//     random rows fall on random banks and the stores of the staging copy
+//     on distinct ones.
+//   * (c), G5 and G7, reads the table through L1 with __ldg, one int4
+//     index group a thread on a grid sized to the work: no shared memory,
+//     so no table copy, no attribute call and no ragged last round of
+//     resident blocks.  A warp's read of 32 random rows touches up to 32
+//     128-byte lines, each an L1 hit once the 64 KB table is in L1.  A
+//     staged form (the table in shared memory by one bulk copy on an
+//     mbarrier, lanes on columns l + 32c so each read hits the 32 banks
+//     once, equal shares of rows over the resident blocks) lost or tied
+//     at every size from 2^14 to 2^24 lookups; a grid-stride staged form
+//     led only near 2^20, where the cold L1 fills of this one cost ~1.5
+//     us, a size no caller runs.
 //   * (d) runs S*128 queries per block (the script's tile height S); each
 //     block stages the whole 72 KB table, so small S pays the copy many
 //     times: that is what the S sweep measures on this card.  The 16
 //     passes read the table through a volatile pointer, so each pass is a
 //     real shared-memory lookup, and add in order from 0.0f with
 //     __fadd_rn, as the plain version's loop does: the sum is bit-equal.
+//
+// Launch path: what a launch needs from the runtime besides the launch
+// itself (the raised shared-memory limit, the blocks that fit on the card)
+// is found at a kernel's first launch on a device at one shared-memory
+// size and kept (resident_blocks), so a launch is cudaGetDevice, the
+// launch and cudaGetLastError.
 //
 // Index arithmetic wraps like the JAX int32 (and torch int32) arithmetic:
 // (idx + off) is computed modulo 2^32 and reduced modulo the power-of-two
@@ -74,6 +92,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -180,51 +200,58 @@ flat_gather_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
   });
 }
 
-// ---- (c) column gather: G5 (MODE 0), G7 (MODE 1), G8 (MODE 2, transposed)
+// ---- (c) column gather: G5 (MODE 0), G7 (MODE 1)
 template <int MODE>
 __device__ __forceinline__ int col_row(int q, int off, int m) {
   return MODE == 0 ? wrap(q, off, m) : ((q >> 7) & m);
 }
 
+// One int4 index group a thread on a grid sized to the work, the table
+// read through L1.
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 col_gather_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
                   float* __restrict__ out, int tab_rows, int n_groups,
                   int off) {
+  const int g = blockIdx.x * THREADS + threadIdx.x;
+  if (g >= n_groups) return;
+  const int4 q = __ldg(reinterpret_cast<const int4*>(idx) + g);
+  const float* t = tab + 4 * (g % GROUPS_PER_ROW);
+  const int m = tab_rows - 1;
+  store4(out + 4 * (size_t)g, __ldg(t + col_row<MODE>(q.x, off, m) * LANES),
+         __ldg(t + col_row<MODE>(q.y, off, m) * LANES + 1),
+         __ldg(t + col_row<MODE>(q.z, off, m) * LANES + 2),
+         __ldg(t + col_row<MODE>(q.w, off, m) * LANES + 3));
+}
+
+// ---- (c) transposed: G8
+__global__ void __launch_bounds__(THREADS)
+transpose_gather_kernel(const float* __restrict__ tab,
+                        const int* __restrict__ idx, float* __restrict__ out,
+                        int tab_rows, int n_groups) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* t = reinterpret_cast<float*>(smem);
   const int stride = tab_rows + 1;           // transposed, padded
-  if (MODE == 2) {
-    const int n = tab_rows * LANES;
-    for (int e0 = threadIdx.x; e0 < n; e0 += BATCH * THREADS) {
-      float r[BATCH];
+  const int n = tab_rows * LANES;
+  for (int e0 = threadIdx.x; e0 < n; e0 += BATCH * THREADS) {
+    float r[BATCH];
 #pragma unroll
-      for (int k = 0; k < BATCH; ++k)
-        if (e0 + k * THREADS < n) r[k] = __ldg(tab + e0 + k * THREADS);
+    for (int k = 0; k < BATCH; ++k)
+      if (e0 + k * THREADS < n) r[k] = __ldg(tab + e0 + k * THREADS);
 #pragma unroll
-      for (int k = 0; k < BATCH; ++k) {
-        const int e = e0 + k * THREADS;
-        if (e < n) t[(e % LANES) * stride + e / LANES] = r[k];
-      }
+    for (int k = 0; k < BATCH; ++k) {
+      const int e = e0 + k * THREADS;
+      if (e < n) t[(e % LANES) * stride + e / LANES] = r[k];
     }
-  } else {
-    stage(t, tab, tab_rows * LANES * 4);
   }
   __syncthreads();
   const int m = tab_rows - 1;
   for_groups(idx, n_groups, [&](int g, int4 q) {
     float v[4];
     const int qs[4] = {q.x, q.y, q.z, q.w};
-    if (MODE == 2) {
-      const float* col = t + (g / GROUPS_PER_ROW % LANES) * stride;
+    const float* col = t + (g / GROUPS_PER_ROW % LANES) * stride;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[k] = col[col_row<MODE>(qs[k], off, m)];
-    } else {
-      const int j = 4 * (g % GROUPS_PER_ROW);
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        v[k] = t[col_row<MODE>(qs[k], off, m) * LANES + j + k];
-    }
+    for (int k = 0; k < 4; ++k) v[k] = col[col_row<1>(qs[k], 0, m)];
     store4(out + 4 * (size_t)g, v[0], v[1], v[2], v[3]);
   });
 }
@@ -265,29 +292,59 @@ rowsel_kernel(const float* __restrict__ tab, const int* __restrict__ rows,
   }
 }
 
-// Raises a kernel's dynamic shared-memory limit where it needs more than
-// the static 48 KB, and says how many of its blocks fit on the card at once.
-cudaError_t setup(const void* fn, int smem, int* resident) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaSuccess;
-  if (smem > STATIC_SMEM)
+// What a launch of one kernel needs on one device at one dynamic
+// shared-memory size: how many of its blocks fit on the card at once.
+struct LaunchFact {
+  const void* fn;
+  int dev, smem, resident;
+};
+std::mutex facts_mu;
+std::vector<LaunchFact> facts;
+
+// Blocks of `fn` (`threads` a block, `smem` bytes of dynamic shared memory)
+// that fit on the current device at once.  The first call for a (kernel,
+// device, size) raises the kernel's dynamic shared-memory limit where the
+// size needs it (the limit only grows) and asks the runtime; later calls
+// find the answer kept.  A refused request leaves no error behind for the
+// next launch's cudaGetLastError().
+cudaError_t resident_blocks(const void* fn, int threads, int smem,
+                            int* resident) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(facts_mu);
+  int limit = STATIC_SMEM;
+  for (const LaunchFact& f : facts) {
+    if (f.fn != fn || f.dev != dev) continue;
+    if (f.smem == smem) {
+      *resident = f.resident;
+      return cudaSuccess;
+    }
+    limit = std::max(limit, f.smem);
+  }
+  int sms = 0, per_sm = 0;
+  if (smem > limit)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                       smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  facts.push_back({fn, dev, smem, sms * per_sm});
   *resident = sms * per_sm;
-  return e;
+  return cudaSuccess;
 }
 
 // Blocks of a grid-stride kernel: as many as fit on the card at once, no
 // more than the work needs.
 cudaError_t grid_for(const void* fn, int smem, int n_groups, int* blocks) {
   int resident = 0;
-  const cudaError_t e = setup(fn, smem, &resident);
+  const cudaError_t e = resident_blocks(fn, THREADS, smem, &resident);
   const int per_block = THREADS * BATCH;
   *blocks = std::max(1, std::min((n_groups + per_block - 1) / per_block,
                                  resident));
@@ -338,18 +395,26 @@ extern "C" int mcl_col_gather(const float* tab, const int* idx, float* out,
                               int tab_rows, int n_out, int off, int mode,
                               cudaStream_t stream) {
   const int n_groups = n_out / 4;
-  int blocks = 0;
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (n_out == 0) return (int)cudaSuccess;
   cudaError_t e;
-#define MCL_COL_GATHER(M, SMEM)                                           \
-  e = grid_for((const void*)col_gather_kernel<M>, SMEM, n_groups, &blocks); \
-  if (e != cudaSuccess) return (int)e;                                    \
-  col_gather_kernel<M><<<blocks, THREADS, SMEM, stream>>>(                \
-      tab, idx, out, tab_rows, n_groups, off)
-  if (mode == 0) { MCL_COL_GATHER(0, tab_rows * LANES * 4); }
-  else if (mode == 1) { MCL_COL_GATHER(1, tab_rows * LANES * 4); }
-  else if (mode == 2) { MCL_COL_GATHER(2, (tab_rows + 1) * LANES * 4); }
-  else return (int)cudaErrorInvalidValue;
-#undef MCL_COL_GATHER
+  if (mode == 2) {
+    const int smem = (tab_rows + 1) * LANES * 4;
+    int blocks = 0;
+    e = grid_for((const void*)transpose_gather_kernel, smem, n_groups,
+                 &blocks);
+    if (e != cudaSuccess) return (int)e;
+    transpose_gather_kernel<<<blocks, THREADS, smem, stream>>>(
+        tab, idx, out, tab_rows, n_groups);
+  } else {
+    const int blocks = (n_groups + THREADS - 1) / THREADS;
+    if (mode == 0)
+      col_gather_kernel<0><<<blocks, THREADS, 0, stream>>>(
+          tab, idx, out, tab_rows, n_groups, off);
+    else
+      col_gather_kernel<1><<<blocks, THREADS, 0, stream>>>(
+          tab, idx, out, tab_rows, n_groups, off);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -359,7 +424,8 @@ extern "C" int mcl_rowsel_accumulate(const float* tab, const int* rows,
                                      int per_block, cudaStream_t stream) {
   const int smem = tab_rows * LANES * 4;
   int resident = 0;
-  const cudaError_t e = setup((const void*)rowsel_kernel, smem, &resident);
+  const cudaError_t e =
+      resident_blocks((const void*)rowsel_kernel, THREADS, smem, &resident);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (nq + per_block - 1) / per_block;
   rowsel_kernel<<<blocks, THREADS, smem, stream>>>(

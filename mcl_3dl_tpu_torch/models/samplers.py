@@ -13,11 +13,13 @@ from __future__ import annotations
 
 import torch
 
+from mcl_3dl_tpu_torch.math import cumsum
+
 
 def draw_uniform_indices(valid, num_points: int, generator) -> torch.Tensor:
     """``num_points`` indices drawn uniformly over the valid entries."""
     p = valid / torch.clamp(torch.sum(valid), min=1)
-    p_cuml = torch.cumsum(p, dim=0)
+    p_cuml = cumsum(p)
     u = torch.rand((num_points,), generator=generator, device=valid.device)
     r = p_cuml[-1] * (1.0 - u)
     idx = torch.searchsorted(p_cuml, r)

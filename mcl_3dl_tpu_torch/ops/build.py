@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
@@ -41,6 +43,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_fns = {}       # entry name -> bound ctypes function, filled by ``library``
 
 
 def _nvcc() -> str:
@@ -108,23 +111,41 @@ def library():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _fns[name] = fn
         _lib = lib
     return _lib
+
+
+def current_stream() -> int:
+    """The raw handle of the current device's current CUDA stream (what
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
+    ``Stream`` object): inside ``torch.cuda.stream(s)`` it is ``s``'s."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def launch(name: str, *args) -> None:
     """Call one C entry point on the current CUDA stream; raise on a
     launch error (the entry returns ``cudaGetLastError()``)."""
-    import torch
-
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+    fn = _fns.get(name)
+    if fn is None:
+        library()
+        fn = _fns[name]
+    err = fn(*args, current_stream())
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
 def check(t, name: str, dtype, shape=None, device=None):
     """Validate a kernel argument before its pointer is handed over."""
+    if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()
+            and (device is None or t.device == device)
+            and (shape is None or t.shape == tuple(shape))):
+        _refuse(t, name, dtype, shape, device)
+    return t.data_ptr()
+
+
+def _refuse(t, name, dtype, shape, device):
+    """Raise the first of ``check``'s conditions that ``t`` fails."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if device is not None and t.device != device:
@@ -133,6 +154,4 @@ def check(t, name: str, dtype, shape=None, device=None):
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    return t.data_ptr()
+    raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -144,18 +144,21 @@ _COL_MODES = {"mod": 0, "shift": 1, "shift_transposed": 2}
 
 
 def _col_gather(wrapper, tab, idx, off, mode):
-    dev = tab.device
-    if tab.dim() != 2 or tab.shape[1] != LANES:
-        raise ValueError(f"tab must be [R, {LANES}], got {tuple(tab.shape)}")
+    # G5's call is nearly all host path (its kernel takes ~2 us), so each
+    # tensor attribute is read once; the table's device is the call's
+    shape = tab.shape
+    if len(shape) != 2 or shape[1] != LANES:
+        raise ValueError(f"tab must be [R, {LANES}], got {tuple(shape)}")
     if idx.shape[-1] != LANES:
         raise ValueError(f"idx must end in {LANES} lanes, got {tuple(idx.shape)}")
-    args = (_ptr(tab, "tab", torch.float32, None, dev),
+    dev = tab.device
+    args = (_ptr(tab, "tab", torch.float32),
             _ptr(idx, "idx", torch.int32, None, dev))
-    out = torch.empty((idx.numel() // LANES, LANES), dtype=torch.float32,
-                      device=dev)
+    n = idx.numel()
+    out = torch.empty(n // LANES, LANES, dtype=torch.float32, device=dev)
     build.launch("mcl_col_gather", *args, out.data_ptr(),
-                 _pow2(tab.shape[0], "table rows"), idx.numel(),
-                 _i32(off, "off"), _COL_MODES[mode])
+                 _pow2(shape[0], "table rows"), n, _i32(off, "off"),
+                 _COL_MODES[mode])
     wrapper.launches += 1
     return out
 

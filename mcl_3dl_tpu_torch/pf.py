@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from mcl_3dl_tpu_torch import state as st
+from mcl_3dl_tpu_torch.math import cumsum
 from mcl_3dl_tpu_torch.math import quat as mq
 from mcl_3dl_tpu_torch.state import ParticleState
 
@@ -43,10 +44,11 @@ def _systematic_select(prob, mask, n_active, capacity: int, p0, pstep):
     particle whose cumulative weight reaches it, in closed form: with
     ``m_j = floor((accum[j] - p0) / pstep) + 1`` offsets at or below
     ``accum[j]``, ``idx[k] = #{j : m_j <= k}`` — a histogram of ``m`` and
-    an inclusive cumsum.  Counts at ``m >= capacity`` fall off the end
+    an inclusive cumsum (the weights' scan is ``math.cumsum``, the same
+    bits on every run).  Counts at ``m >= capacity`` fall off the end
     (they land in a dropped extra bin, never clamped onto the last one).
     Results are clamped into the active range (pf.h:209-213)."""
-    accum = torch.cumsum(prob * mask, dim=0)
+    accum = cumsum(prob * mask)
     m = torch.floor((accum - p0) / pstep).to(torch.int32) + 1
     m = torch.clamp(m, min=0, max=capacity).to(torch.int64)
     hist = torch.zeros((capacity + 1,), dtype=torch.int32, device=prob.device)

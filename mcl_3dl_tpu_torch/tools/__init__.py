@@ -7,14 +7,19 @@ package's gather experiments in ``tools/``, under the same file names.
 
 Each module builds its inputs from ``numpy.random.default_rng(0)`` at the
 JAX script's shapes (``lookups(device, ...)``) and ``main`` times each
-experiment, one line each: milliseconds, G lookups/s, the byte bound and
-the card's ``nvidia-smi`` name and power limit; it returns the
-experiments with their times in ``ms`` and ``library_ms``.  They run on
+experiment, one line each: milliseconds, G lookups/s, the byte bound,
+the split of a call into device and host time, and the card's
+``nvidia-smi`` name and power limit; it returns the experiments with
+their times in ``ms`` and ``library_ms`` and the split in ``device_ms``,
+``host_ms``, ``library_device_ms`` and ``library_host_ms``.  They run on
 the CUDA device unless called with ``device="cpu"``, which times the
-plain versions on the host (not a device number).
+plain versions on the host (not a device number; the split stays None).
 
 ``time_ms`` and ``bound`` are also the timer and the roofline of
-``chip_smoke.py``.
+``chip_smoke.py``.  ``time_ms`` records its start event on an idle card
+and then calls the wrapper, so its time holds the whole host path of one
+call as well as the kernel: ``device_ms`` and ``host_ms`` say how much
+of each.
 """
 
 from __future__ import annotations
@@ -53,6 +58,11 @@ class Lookup:
     note: str = ""
     ms: Optional[float] = None          # set by ``run``
     library_ms: Optional[float] = None  # set by ``run`` where ``library`` is
+    # the split of a call, set by ``run`` on the card (``split``)
+    device_ms: Optional[float] = None
+    host_ms: Optional[float] = None
+    library_device_ms: Optional[float] = None
+    library_host_ms: Optional[float] = None
 
     @property
     def bound_ms(self) -> float:
@@ -122,21 +132,79 @@ def time_ms(fn, iters, device="cuda") -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters=25) -> float:
+    """Device time per call of ``fn`` on the card: ``iters`` calls captured
+    in one CUDA graph after a warm-up, one replay timed with CUDA events,
+    divided by ``iters``.  It holds the kernels and the device's gaps
+    between them, no host time.  (``torch.profiler`` is not used: after
+    its sessions the host path of later launches read slower.)"""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def host_ms(fn, calls=1000, batch=50) -> float:
+    """Host time per call of ``fn`` on the card: ``time.perf_counter`` over
+    ``calls`` back-to-back calls with no sync, divided by ``calls``.  The
+    card is synchronised (outside the clock) after every ``batch`` calls,
+    so the launch queue never fills and the clock never waits on the
+    device."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // batch):
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / (calls // batch * batch) * 1e3
+
+
+def split(fn, iters=25):
+    """``(device_ms, host_ms)`` of one call of ``fn`` on the card."""
+    host = host_ms(fn)
+    return device_ms(fn, iters), host
+
+
+def _split_text(d, h):
+    return "" if d is None else f" (device {d:.4f} + host {h:.4f} ms a call)"
+
+
 def run(lookups, device, iters=25):
-    """Time each experiment into its ``ms`` (and ``library_ms``) and print
-    its line; returns ``lookups``."""
+    """Time each experiment into its ``ms`` (and ``library_ms``), on the
+    card also its device/host split, and print its line; returns
+    ``lookups``."""
     where = card(device)
+    on_card = device.type == "cuda"
     for e in lookups:
         e.ms = ms = time_ms(e.run, iters, device)
+        if on_card:
+            e.device_ms, e.host_ms = split(e.run, iters)
         kind = ("library call" if e.wrapper is None else
-                "kernel" if device.type == "cuda" else "plain version")
+                "kernel" if on_card else "plain version")
         lib = ""
         if e.library is not None:
             e.library_ms = time_ms(e.library, iters, device)
-            lib = f", {e.library_label} {e.library_ms:.4f} ms"
+            if on_card:
+                e.library_device_ms, e.library_host_ms = split(e.library, iters)
+            lib = (f", {e.library_label} {e.library_ms:.4f} ms"
+                   + _split_text(e.library_device_ms, e.library_host_ms))
         note = f" ({e.note})" if e.note else ""
         print(f"{e.tag} {e.name} [{kind}, {e.replaces}]: {ms:.4f} ms on "
-              f"{device.type}, {e.lookups / ms / 1e6:.3f} G lookups/s, bound "
+              f"{device.type}{_split_text(e.device_ms, e.host_ms)}, "
+              f"{e.lookups / ms / 1e6:.3f} G lookups/s, bound "
               f"{e.bound_ms:.4f} ms by {e.bound_by} ({e.nbytes} B at 3.35 TB/s)"
               f"{lib}{note} [{where}]", flush=True)
     return lookups

@@ -103,7 +103,7 @@ def lookups(device, q=1 << 24, risky=False):
             nbytes=nbytes(t_small, i_small) + 4 * L * L,
             library=lambda: torch.gather(t_small, 0, i64),
             library_label="torch.gather",
-            note="one 128x128 block: its time is launch latency"))
+            note="one 128x128 block: its time is nearly all host path"))
     return out
 
 

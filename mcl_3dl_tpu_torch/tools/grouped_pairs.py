@@ -171,17 +171,24 @@ def load_build(pkg_dir):
 
 
 @contextlib.contextmanager
-def launching(other):
-    """This package's wrappers launch ``other``'s kernels (None: ours)."""
+def launching(other, ops=og):
+    """The wrappers of the ops module ``ops`` launch ``other``'s kernels
+    through ``other``'s ``check`` and ``launch`` (None: ours)."""
     if other is None:
         yield
         return
-    saved = og.build
-    og.build = types.SimpleNamespace(check=saved.check, launch=other.launch)
+    saved = ops.build
+    ops.build = types.SimpleNamespace(check=other.check, launch=other.launch)
     try:
         yield
     finally:
-        og.build = saved
+        ops.build = saved
+
+
+def round_order(versions, r):
+    """The builds of round ``r``: in list order in even rounds, reversed
+    in odd ones."""
+    return versions if r % 2 == 0 else versions[::-1]
 
 
 def _quartiles(xs):
@@ -240,7 +247,7 @@ def compare(inp, others, pairs, where):
                               for g, w in zip(got, want))
         times = {name: [] for name, _ in versions}
         for r in range(pairs):
-            for name, lib in (versions if r % 2 == 0 else versions[::-1]):
+            for name, lib in round_order(versions, r):
                 with launching(lib):
                     times[name].append(time_ms(run, 25))
         bound_ms, by = bound(nbytes, ops)

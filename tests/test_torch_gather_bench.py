@@ -18,6 +18,7 @@ exactly equal.
 
 import ast
 import pathlib
+import types
 from functools import partial
 
 import jax
@@ -28,8 +29,10 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import gather_bench as ogb
-from mcl_3dl_tpu_torch.tools import exp_gather, exp_gather2, exp_rowsel_shape
+from mcl_3dl_tpu_torch.tools import (exp_gather, exp_gather2, exp_rowsel_shape,
+                                     gather_pairs)
 
 torch.set_num_threads(2)   # several test workers share the CPU
 
@@ -227,6 +230,10 @@ def test_tool_main_on_cpu(tool, capsys):
     assert [e.tag for e in res] == TAGS[tool]
     assert all(e.ms > 0 for e in res)
     assert all((e.library_ms is None) == (e.library is None) for e in res)
+    # the device/host split of a call is a card measurement: None here
+    assert all(v is None for e in res for v in (
+        e.device_ms, e.host_ms, e.library_device_ms, e.library_host_ms))
+    assert all(" (device " not in s for s in lines)
     assert [s.split()[0] for s in lines] == TAGS[tool]
     for s in lines:
         assert " ms on cpu, " in s and " G lookups/s, bound " in s
@@ -257,3 +264,44 @@ def test_tool_needs_cuda_by_default(tool, monkeypatch):
     mod, sizes = TOOLS[tool]
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(iters=1, **sizes)
+
+
+def test_gather_pairs_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gather_pairs.main(["--pairs", "1"])
+
+
+def test_gather_pairs_alternates_builds(monkeypatch, capsys):
+    """In each round every build is timed once, in list order in even
+    rounds and reversed in odd ones, then the library call."""
+    other = types.SimpleNamespace(check=None, launch=None)
+    rows = [e for e in exp_gather2.lookups(torch.device("cpu"), q=1 << 15,
+                                           bq=128) if e.tag == "G7"]
+    order = []
+
+    def fake_time_ms(fn, iters):
+        order.append("library" if fn is rows[0].library else
+                     "this" if gather_pairs.ogb.build is build else "other")
+        return 1.0 + len(order)
+
+    monkeypatch.setattr(gather_pairs, "time_ms", fake_time_ms)
+    monkeypatch.setattr(gather_pairs, "device_ms", lambda fn: 0.5)
+    res = gather_pairs.compare(rows, {"other": other}, 4, "cpu")
+    assert order == ["this", "other", "library", "other", "this", "library"] * 2
+    assert gather_pairs.ogb.build is build
+    (e, times), = res
+    assert e is rows[0] and sorted(times) == ["library", "other", "this"]
+    out = capsys.readouterr().out
+    assert "G7 sublane_gather other: " in out and "this faster in 2 of 4" in out
+    assert "equal to plain: True" in out
+
+
+def test_gather_pairs_sweep_rows_compute_g5():
+    """The G5 rows beyond the script's size: kernel (plain on the CPU) and
+    library call compute the same function."""
+    rows = gather_pairs.sub_sweep(torch.device("cpu"), counts=(L * 3, L * 40))
+    assert [e.lookups for e in rows] == [L * 3, L * 40]
+    for e in rows:
+        want = e.plain()
+        assert torch.equal(e.run(), want) and torch.equal(e.library(), want)

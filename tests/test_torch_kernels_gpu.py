@@ -16,10 +16,12 @@ import pytest
 import torch
 
 from mcl_3dl_tpu_torch.map.distance_field import build_distance_field
+from mcl_3dl_tpu_torch.math import cumsum
 from mcl_3dl_tpu_torch.math import quat as mq
 from mcl_3dl_tpu_torch.models.beam import (BeamVirtualPoints,
                                            grouped_beam_inputs)
 from mcl_3dl_tpu_torch.models.likelihood import grouped_like_inputs
+from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops import gather_bench as ogb
 from mcl_3dl_tpu_torch.ops import local_gather as olg
@@ -245,10 +247,106 @@ def test_lookup_kernel_matches_plain(cuda, tag):
         assert got.dtype == want.dtype and torch.equal(got, want), e.name
 
 
+# G5, G7 and G8 at edge sizes, in query rows of 128 lanes: one row (a
+# single warp of int4 groups in a block of eight), ragged last blocks, and
+# a million lookups.  G8 takes chunks of 128 rows.
+_COL_ROWS = {"one_row": 1, "rows_37": 37, "rows_515": 515, "rows_8195": 8195}
+
+
+def _col_inputs(dev, rows, seed):
+    """A [128, 128] f32 table and [rows, 128] i32 queries in [0, 16384),
+    the first four at 0, 127, 16383 and 128."""
+    rng = np.random.default_rng(seed)
+    tab = rng.standard_normal((128, 128)).astype(np.float32)
+    idx = rng.integers(0, 128 * 128, (rows, 128), dtype=np.int32)
+    idx.flat[:4] = [0, 127, 16383, 128]
+    t = to_device(dev)
+    return t(tab), t(idx)
+
+
+@pytest.mark.parametrize("size", sorted(_COL_ROWS))
+@pytest.mark.parametrize("off", [1, -5, 2 ** 31 - 3])
+def test_sub_gather_edges_match_plain(cuda, size, off):
+    """G5; ``off`` -5 wraps negative, 2^31 - 3 overflows int32."""
+    tab, idx = _col_inputs(cuda, _COL_ROWS[size], 21)
+    n0 = ogb.sub_gather.launches
+    got = ogb.sub_gather(tab, idx, off)
+    assert ogb.sub_gather.launches == n0 + 1
+    want = ogb.sub_gather_plain(tab, idx, off)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("size", sorted(_COL_ROWS))
+def test_sublane_gather_edges_match_plain(cuda, size):
+    rows = _COL_ROWS[size]
+    tab, idx = _col_inputs(cuda, rows, 22)
+    idx = idx.view(1, rows, 128)
+    n0 = ogb.sublane_gather.launches
+    got = ogb.sublane_gather(tab, idx)
+    assert ogb.sublane_gather.launches == n0 + 1
+    want = ogb.sublane_gather_plain(tab, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chunks", [1, 3, 33])
+def test_transpose_gather_edges_match_plain(cuda, chunks):
+    tab, idx = _col_inputs(cuda, 128 * chunks, 23)
+    idx = idx.view(chunks, 128, 128)
+    got = ogb.transpose_gather(tab, idx)
+    want = ogb.transpose_gather_plain(tab, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_launch_follows_current_stream(cuda, monkeypatch):
+    """``build.launch`` passes the current stream's raw handle: inside
+    ``torch.cuda.stream(s)`` it is ``s``'s, outside it the default one."""
+    build.library()
+    real = build._fns["mcl_col_gather"]
+    seen = []
+
+    def spy(*args):
+        seen.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setitem(build._fns, "mcl_col_gather", spy)
+    tab, idx = _col_inputs(cuda, 4, 24)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        on_s = ogb.sub_gather(tab, idx)
+    torch.cuda.current_stream().wait_stream(s)
+    on_default = ogb.sub_gather(tab, idx)
+    torch.cuda.synchronize()
+    assert seen == [s.cuda_stream, torch.cuda.default_stream().cuda_stream]
+    assert torch.equal(on_s, on_default)
+
+
 def test_refused_lookup_launch_raises(cuda):
     """A table beyond the 227 KB of shared memory a block may have: the
-    launch is refused and the wrapper raises."""
+    launch is refused and the wrapper raises; the refusal leaves no error
+    behind for the next launch."""
     tab = torch.zeros((1 << 16,), device=cuda)
     idx = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         ogb.fancy_gather(tab, idx)
+    small = torch.arange(1 << 14, dtype=torch.float32, device=cuda)
+    got = ogb.fancy_gather(small, idx + 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ogb.flat_gather_plain(small, idx + 3))
+
+
+def test_cumsum_is_reproducible_on_the_card(cuda):
+    """The scan of resampling at the main path's 2^20 particles: the same
+    bits on every call (``torch.cumsum`` of a whole 1-D tensor is not),
+    within f32 rounding of the float64 scan."""
+    x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(0))
+    xc = x.to(cuda)
+    first = cumsum(xc)
+    for _ in range(4):
+        assert torch.equal(cumsum(xc), first)
+    np.testing.assert_allclose(first.cpu().numpy(),
+                               np.cumsum(x.numpy().astype(np.float64)),
+                               rtol=1e-6)

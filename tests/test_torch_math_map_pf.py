@@ -38,6 +38,7 @@ from worlds import make_room
 from mcl_3dl_tpu_torch import convert, pf, state as st, worlds
 from mcl_3dl_tpu_torch.config import Params
 from mcl_3dl_tpu_torch.map.map_data import MapData
+from mcl_3dl_tpu_torch.math import cumsum, row_scan
 from mcl_3dl_tpu_torch.math import filters as mf
 from mcl_3dl_tpu_torch.math import nd
 from mcl_3dl_tpu_torch.math import quat as tq
@@ -245,6 +246,23 @@ def test_systematic_select_drops_indices_past_capacity():
                                   jnp.int32(4), 4, jnp.float32(0.5),
                                   jnp.float32(0.25))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+
+
+@pytest.mark.parametrize("n, row", [(1, 4), (4, 4), (5, 4), (100, 4),
+                                    (3000, 1024), ((1 << 20) + 5, 1024)])
+def test_row_scan_is_an_inclusive_cumsum(n, row):
+    # the scan resampling and point sampling use on CUDA, at each depth of
+    # its recursion (rows, row totals, totals of totals) and ragged ends
+    rng = np.random.default_rng(n)
+    x = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    got = row_scan(torch.tensor(x), row).numpy()
+    np.testing.assert_allclose(got, np.cumsum(x.astype(np.float64)), rtol=1e-6)
+    xi = rng.integers(0, 5, n).astype(np.float32)        # sums exact in f32
+    np.testing.assert_array_equal(row_scan(torch.tensor(xi), row).numpy(),
+                                  np.cumsum(xi))
+    # on the CPU the filter keeps the one-pass scan that JAX's matches
+    xt = torch.tensor(x)
+    assert torch.equal(cumsum(xt), torch.cumsum(xt, dim=0))
 
 
 def test_init_multivariate_transform_reproduces_covariance():
