@@ -19,7 +19,9 @@ time):
    counts are zeroed right before the drive and read right after it;
 4. each kernel against its plain PyTorch version on the card at the main
    path's shapes (inputs from the drive's last state): bit-equal on every
-   slot whose value the caller keeps, then timed beside its bound;
+   slot whose value the caller keeps, then timed beside its bound, with
+   a call split into device time (a CUDA graph's replay) and host time
+   (1000 back-to-back calls);
 5. where a steady step's time goes: each layer timed on the final state,
    ``push_cloud`` over 20 more scans, and one step under
    ``torch.profiler`` for the device-busy share (run after phase 6);
@@ -120,8 +122,8 @@ def lookup_phase(card):
         print(f"phase 6 {e.tag} {e.name}{' (' + e.note + ')' if e.note else ''}:"
               f" equal on {got.numel()} outputs, {e.ms:.4f} ms (device "
               f"{e.device_ms:.4f} + host {e.host_ms:.4f} a call), "
-              f"{e.lookups / e.ms / 1e6:.3f} G lookups/s (bound {e.bound_ms:.4f}"
-              f" ms by {e.bound_by}), plain {plain_ms:.3f} ms{lib}, launches "
+              f"{e.lookups / e.ms / 1e6:.3f} G lookups/s ({e.bound_text}), "
+              f"plain {plain_ms:.3f} ms{lib}, launches "
               f"{launches[e.name]} {card}", flush=True)
         if e.name in seen:
             continue
@@ -149,7 +151,7 @@ def main() -> int:
     from mcl_3dl_tpu_torch.ops import build
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
-    from mcl_3dl_tpu_torch.tools import bound, time_ms
+    from mcl_3dl_tpu_torch.tools import bound, split, time_ms
     from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
 
     # ---- phase 1: device facts
@@ -238,14 +240,17 @@ def main() -> int:
             assert torch.equal(a, b), f"{kname}: kernel != plain"
             err = max(err, float((a - b).abs().max()))
         ms = time_ms(kernel, 25)
+        dev_ms, host_ms = split(kernel)
         plain_ms = time_ms(plain, 3)
         bound_ms, by = bound(bytes_, ops)
         results.append(dict(name=kname, route="cuda", source=src,
                             replaces=replaces, launches=launches_n,
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=by, library_ms=None))
-        print(f"phase 4 {kname}: bit-equal on {sel.numel()} slots, {ms:.4f} ms (bound {bound_ms:.4f} ms by {by}), plain "
-              f"{plain_ms:.2f} ms {card}", flush=True)
+        print(f"phase 4 {kname}: bit-equal on {sel.numel()} slots, {ms:.4f} ms "
+              f"(device {dev_ms:.4f} + host {host_ms:.4f} a call; bound "
+              f"{bound_ms:.4f} ms by {by}), plain {plain_ms:.2f} ms {card}",
+              flush=True)
 
     # K1 at [nt, 12, 1024] x 96 points x 97 bins
     report("like_score", "mcl_3dl_tpu_torch/csrc/grouped.cu",
@@ -301,7 +306,7 @@ def main() -> int:
             long_pen=inp.beam_kw["long_pen"], num_steps=vp.nprobe - 1)
 
     group_args = inp.group_args
-    split = {
+    layers = {
         "group stats + boxes + layout": time_ms(lambda: eng.group(*group_args), 5),
         "like tables + skip words": time_ms(lambda: grouped_like_inputs(
             df, stats, inp.lo_l, like_pts, like_valid, lp.match_dist_min), 5),
@@ -314,10 +319,10 @@ def main() -> int:
         "beam overflow rescore": time_ms(beam_rescore, 5),
     }
     models_ms = time_ms(lambda: eng._measure_models(*group_args), 5)
-    split["measure_models total"] = models_ms
-    split["rest of push_cloud (sampling, PF tail, host)"] = step_s * 1e3 - models_ms
+    layers["measure_models total"] = models_ms
+    layers["rest of push_cloud (sampling, PF tail, host)"] = step_s * 1e3 - models_ms
     print("phase 5 split (ms): " + "; ".join(
-        f"{k} {v:.3f}" for k, v in split.items()) + f" {card}", flush=True)
+        f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
 
     # steady-state push_cloud time over STEADY_STEPS more scans
     times, tiers = [], set()

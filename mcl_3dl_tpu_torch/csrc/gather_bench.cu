@@ -28,29 +28,44 @@
 //
 //   * Indices are read as int4 and outputs written as float4 (uchar4 for
 //     u8): 16 B a thread, neighbouring threads on neighbouring addresses.
-//     The wrappers check 16-byte alignment.
-//   * A thread of a grid-stride loop ((b), (d), the transposed (c))
-//     issues BATCH 8 index loads before it uses any, and the table copies
-//     of (a), (b), (d) and the transposed (c) issue BATCH 16-byte loads
-//     before their stores.  With one load at a time the few resident
-//     blocks wait on one memory latency per 16 bytes and cannot keep
-//     enough bytes in flight to reach the card's bandwidth.
+//     The wrappers check 16-byte alignment, except for (d)'s queries: its
+//     entry takes the vector path when they are aligned and a scalar one
+//     when they are not.
+//   * A thread of (b) and the transposed (c) starts its int4 index loads
+//     (8 in G3, G6 and G8, 1 in G9) before it uses any, a thread of (d)
+//     loads its next group of rows and lanes before it looks up the
+//     current one, and the table copies of (a), (b), (d) and the
+//     transposed (c) start BATCH 16-byte loads before their stores.  With
+//     one load at a time the few resident blocks wait on one memory
+//     latency per 16 bytes and cannot keep enough bytes in flight to reach
+//     the card's bandwidth.
 //   * (a) stages the block's 16 table rows in shared memory with 16-byte
 //     loads, so each table byte crosses from device memory once, and
 //     gathers from there.  At W 512 the whole 256 MiB table is read,
 //     though the queries touch a quarter of it: a 128-query row touches
 //     nearly every 32-byte sector of its 2 KB table row anyway.
-//   * (b), (d) and the transposed (c) share one small table among all
-//     blocks and copy it into shared memory once per block: up to 72 KB,
-//     above the static 48 KB, so the kernel's dynamic shared-memory limit
-//     is raised first.  (b) and the transposed (c) are grid-stride loops
-//     over as many blocks as fit on the card at once, so the copy is paid
-//     ~400 times, not once per query tile.  G9 is the same function as
-//     G6; its kernel reads the table through L1/L2 with __ldg instead, so
-//     the pair measures shared memory against the cache for a 64 KB table.
+//   * (b)'s shared form (G3, G6), (d) and the transposed (c) share one
+//     small table among all blocks and copy it into shared memory once per
+//     block: up to 72 KB, above the static 48 KB, so the kernel's dynamic
+//     shared-memory limit is raised first.  G6 and G10 run one block of
+//     768 threads on each SM (the MCL_*_THREADS and MCL_*_PER_SM macros),
+//     so the table crosses from L2 132 times, not once per query tile,
+//     and a thread starts its first index loads before the copy, so
+//     device-memory latency runs under it.  Measured against three blocks
+//     of 256 threads an SM (396 copies), one of 1024 and two of 512, this
+//     shape was the fastest for both.  G6's blocks walk rounds of 768 * 8
+//     int4 groups; equal rounds (no part-full last round) and one
+//     contiguous share a block measured no faster.  G3's 4 KB table costs
+//     nothing to copy, so it keeps blocks of 256 threads, as many as fit,
+//     and loads after the copy (early loads would hold 8 int4 registers
+//     through it and cut the resident blocks).  G9 is G6's function with
+//     the table read through L1/L2 by __ldg: with no table to copy it takes
+//     (c)'s direct form, one int4 group a thread on a grid sized to the
+//     work, so the pair measures each memory in its fastest schedule.  The
+//     transposed (c) stays a grid-stride loop over all resident blocks.
 //   * Shared-memory banks: in (a), (b) and (d) the 32 lanes of a read
 //     take random entries, so they fall on random banks and a read costs
-//     as many passes as the most lanes on one bank (about 3.5 for 32
+//     as many passes as the most distinct words on one bank (3.5 for 32
 //     uniform lanes).  The transposed (c), G8: all 32 lanes of a warp read
 //     column i mod 128, which in a row-major table is one bank; the table
 //     is staged transposed with a padded stride (129), so the lanes'
@@ -67,18 +82,28 @@
 //     at every size from 2^14 to 2^24 lookups; a grid-stride staged form
 //     led only near 2^20, where the cold L1 fills of this one cost ~1.5
 //     us, a size no caller runs.
-//   * (d) runs S*128 queries per block (the script's tile height S); each
-//     block stages the whole 72 KB table, so small S pays the copy many
-//     times: that is what the S sweep measures on this card.  The 16
-//     passes read the table through a volatile pointer, so each pass is a
-//     real shared-memory lookup, and add in order from 0.0f with
-//     __fadd_rn, as the plain version's loop does: the sum is bit-equal.
+//   * (d) keeps the script's tile of S*128 queries (S its tile height) as
+//     the unit of work: block b stages the 72 KB table once and walks the
+//     tiles b, b + gridDim.x, ..., its threads on the block's groups of
+//     four queries in order, so the copy no longer grows as S shrinks.
+//     The 16 passes read the table through a volatile pointer, so each
+//     pass is a real shared-memory lookup, and add in order from 0.0f
+//     with __fadd_rn, as the plain version's loop does: the sum is
+//     bit-equal.  A thread keeps its four queries' lookups of a pass in
+//     flight together.  What bounds (d) is the lookup rate, not bytes:
+//     2^24 lookups at 32 words a clock on each of 132 SMs take ~2 us
+//     without bank conflicts and ~3.5 times that with random lanes,
+//     against 3.8 us for its 12.7 MB of device memory.
 //
 // Launch path: what a launch needs from the runtime besides the launch
 // itself (the raised shared-memory limit, the blocks that fit on the card)
 // is found at a kernel's first launch on a device at one shared-memory
 // size and kept (resident_blocks), so a launch is cudaGetDevice, the
 // launch and cudaGetLastError.
+//
+// The block shapes of G6 and G10 are macros, so that a copy of this file
+// with other definitions in front builds a variant of them
+// (mcl_3dl_tpu_torch/tools/gather_pairs.py --variants).
 //
 // Index arithmetic wraps like the JAX int32 (and torch int32) arithmetic:
 // (idx + off) is computed modulo 2^32 and reduced modulo the power-of-two
@@ -92,17 +117,33 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 #include <mutex>
 #include <vector>
 
+#ifndef MCL_FLAT_THREADS
+#define MCL_FLAT_THREADS 768    // threads a block of (b)'s shared form
+#endif
+#ifndef MCL_FLAT_PER_SM
+#define MCL_FLAT_PER_SM 1       // most blocks of (b)'s shared form on an SM
+#endif
+#ifndef MCL_ROWSEL_THREADS
+#define MCL_ROWSEL_THREADS 768  // threads a block of (d)
+#endif
+#ifndef MCL_ROWSEL_PER_SM
+#define MCL_ROWSEL_PER_SM 1     // most blocks of (d) on an SM
+#endif
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;    // threads a block of (a), (c), G3 and G9
+constexpr int ROWSEL_THREADS = MCL_ROWSEL_THREADS;
 constexpr int LANES = 128;
 constexpr int GROUPS_PER_ROW = LANES / 4;  // int4 index groups per 128-lane row
 constexpr int RG_ROWS = 16;                // table rows staged per block in (a)
 constexpr int STATIC_SMEM = 48 * 1024;
 constexpr int BATCH = 8;     // loads a thread has in flight before it uses them
+constexpr int SMALL_TAB = 16 * 1024;  // (b)'s tables up to this size: G3's shape
 
 __device__ __forceinline__ int wrap(int q, int off, int mask) {
   return (int)(((unsigned)q + (unsigned)off) & (unsigned)mask);
@@ -126,21 +167,33 @@ __device__ __forceinline__ void stage(void* dst, const void* src, int bytes) {
   }
 }
 
-// Grid-stride loop over the int4 index groups; each thread loads BATCH
-// groups before it hands any to f(g, q), for the same reason.
-template <typename F>
+// Grid-stride loop over the int4 index groups in rounds of T * B: in each
+// round, thread t of block b takes the groups b * T * B + t + k * T
+// (k < B) and loads all B before it hands any to f(g, q), for the same
+// reason.  `first()` runs once before the loop.  With EARLY the first
+// round's loads are issued before it, so that their latency runs under
+// what it does (G6's table copy); they then hold B int4 registers through
+// it, which only a large table repays.
+template <int T, int B, bool EARLY, typename First, typename F>
 __device__ __forceinline__ void for_groups(const int* idx, int n_groups,
-                                           F&& f) {
+                                           First&& first, F&& f) {
   const int4* q4 = reinterpret_cast<const int4*>(idx);
-  for (int g0 = blockIdx.x * THREADS * BATCH + threadIdx.x; g0 < n_groups;
-       g0 += gridDim.x * THREADS * BATCH) {
-    int4 q[BATCH];
+  const int step = (int)gridDim.x * T * B;
+  int g0 = (int)blockIdx.x * T * B + (int)threadIdx.x;
+  int4 q[B];
+  auto load = [&](int c) {
 #pragma unroll
-    for (int k = 0; k < BATCH; ++k)
-      if (g0 + k * THREADS < n_groups) q[k] = __ldg(q4 + g0 + k * THREADS);
+    for (int k = 0; k < B; ++k)
+      if (c + k * T < n_groups) q[k] = __ldg(q4 + c + k * T);
+  };
+  if (EARLY) load(g0);
+  first();
+  for (; g0 < n_groups; g0 += step) {
+    if (!EARLY) load(g0);
 #pragma unroll
-    for (int k = 0; k < BATCH; ++k)
-      if (g0 + k * THREADS < n_groups) f(g0 + k * THREADS, q[k]);
+    for (int k = 0; k < B; ++k)
+      if (g0 + k * T < n_groups) f(g0 + k * T, q[k]);
+    if (EARLY) load(g0 + step);
   }
 }
 
@@ -180,24 +233,30 @@ __device__ __forceinline__ float flat_load(const float* t, int i) {
   return SHARED ? t[i] : __ldg(t + i);
 }
 
-template <bool SHARED>
-__global__ void __launch_bounds__(THREADS)
+// G3 and G6 copy the table into shared memory first (G6 under its first
+// index loads), G9 reads it through L1/L2; G9 runs one round a block (a
+// grid sized to the work), G3 and G6 as many as their resident blocks need.
+template <bool SHARED, int T, int B, bool EARLY>
+__global__ void __launch_bounds__(T)
 flat_gather_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
                    float* __restrict__ out, int n_tab, int n_groups, int off) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const float* t = tab;
-  if (SHARED) {
-    stage(smem, tab, n_tab * 4);
-    __syncthreads();
-    t = reinterpret_cast<const float*>(smem);
-  }
+  const float* t = SHARED ? reinterpret_cast<const float*>(smem) : tab;
   const int m = n_tab - 1;
-  for_groups(idx, n_groups, [&](int g, int4 q) {
-    store4(out + 4 * (size_t)g, flat_load<SHARED>(t, wrap(q.x, off, m)),
-           flat_load<SHARED>(t, wrap(q.y, off, m)),
-           flat_load<SHARED>(t, wrap(q.z, off, m)),
-           flat_load<SHARED>(t, wrap(q.w, off, m)));
-  });
+  for_groups<T, B, EARLY>(
+      idx, n_groups,
+      [&] {
+        if (SHARED) {
+          stage(smem, tab, n_tab * 4);
+          __syncthreads();
+        }
+      },
+      [&](int g, int4 q) {
+        store4(out + 4 * (size_t)g, flat_load<SHARED>(t, wrap(q.x, off, m)),
+               flat_load<SHARED>(t, wrap(q.y, off, m)),
+               flat_load<SHARED>(t, wrap(q.z, off, m)),
+               flat_load<SHARED>(t, wrap(q.w, off, m)));
+      });
 }
 
 // ---- (c) column gather: G5 (MODE 0), G7 (MODE 1)
@@ -246,7 +305,7 @@ transpose_gather_kernel(const float* __restrict__ tab,
   }
   __syncthreads();
   const int m = tab_rows - 1;
-  for_groups(idx, n_groups, [&](int g, int4 q) {
+  for_groups<THREADS, BATCH, false>(idx, n_groups, [] {}, [&](int g, int4 q) {
     float v[4];
     const int qs[4] = {q.x, q.y, q.z, q.w};
     const float* col = t + (g / GROUPS_PER_ROW % LANES) * stride;
@@ -257,38 +316,86 @@ transpose_gather_kernel(const float* __restrict__ tab,
 }
 
 // ---- (d) row-select accumulate: G10
-__global__ void __launch_bounds__(THREADS)
+
+// The block's j-th group of four queries: the block takes the tiles
+// blockIdx.x, + gridDim.x, ... of `per_block` queries, each `gpt` groups.
+// Returns how many of the group's queries exist (0 past the block's work)
+// and sets *q to the first.
+__device__ __forceinline__ int rowsel_group(int j, int gpt, long long n_tiles,
+                                            int per_block, int nq,
+                                            long long* q) {
+  const int i = j / gpt;
+  const long long tile = blockIdx.x + (long long)i * gridDim.x;
+  if (tile >= n_tiles) return 0;
+  *q = tile * per_block + 4LL * (j - i * gpt);
+  const long long left = ((tile + 1) * per_block < nq ? (tile + 1) * per_block
+                                                      : (long long)nq) - *q;
+  return left <= 0 ? 0 : left >= 4 ? 4 : (int)left;
+}
+
+// The `n` values p[q], ... as one int4 where VEC allows it (the group is
+// whole and, as the entry checked, 16-byte aligned), else one by one.
+template <bool VEC>
+__device__ __forceinline__ int4 load_group(const int* p, long long q, int n) {
+  if (VEC && n == 4) return __ldg(reinterpret_cast<const int4*>(p + q));
+  int4 v = make_int4(0, 0, 0, 0);
+  if (n > 0) v.x = __ldg(p + q);
+  if (n > 1) v.y = __ldg(p + q + 1);
+  if (n > 2) v.z = __ldg(p + q + 2);
+  if (n > 3) v.w = __ldg(p + q + 3);
+  return v;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(ROWSEL_THREADS)
 rowsel_kernel(const float* __restrict__ tab, const int* __restrict__ rows,
               const int* __restrict__ lanes, float* __restrict__ out,
               int tab_rows, int nq, int passes, int per_block) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int gpt = (per_block + 3) / 4;
+  const long long n_tiles = ((long long)nq + per_block - 1) / per_block;
+  int j = threadIdx.x;
+  long long q = 0;
+  int n = rowsel_group(j, gpt, n_tiles, per_block, nq, &q);
+  int4 r = load_group<VEC>(rows, q, n), l = load_group<VEC>(lanes, q, n);
   stage(smem, tab, tab_rows * LANES * 4);
   __syncthreads();
   const volatile float* t = reinterpret_cast<const volatile float*>(smem);
-  const int q1 = min(nq, ((int)blockIdx.x + 1) * per_block);
-  for (int q0 = (int)blockIdx.x * per_block + threadIdx.x; q0 < q1;
-       q0 += BATCH * THREADS) {
-    int a[BATCH];
-    bool hit[BATCH];
+  // groups come in order, so the first empty one ends the thread's work
+  while (n > 0) {
+    long long qn = 0;
+    const int nn = rowsel_group(j + ROWSEL_THREADS, gpt, n_tiles, per_block,
+                                nq, &qn);
+    const int4 rn = load_group<VEC>(rows, qn, nn);
+    const int4 ln = load_group<VEC>(lanes, qn, nn);
+    const int rr[4] = {r.x, r.y, r.z, r.w}, ll[4] = {l.x, l.y, l.z, l.w};
+    int a[4];
+    bool hit[4];
 #pragma unroll
-    for (int k = 0; k < BATCH; ++k) {
-      const int q = q0 + k * THREADS;
-      if (q < q1) {
-        const int r = __ldg(rows + q);
-        hit[k] = (unsigned)r < (unsigned)tab_rows;
-        a[k] = r * LANES + (__ldg(lanes + q) & (LANES - 1));
-      }
+    for (int k = 0; k < 4; ++k) {
+      hit[k] = k < n && (unsigned)rr[k] < (unsigned)tab_rows;
+      a[k] = rr[k] * LANES + (ll[k] & (LANES - 1));
     }
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int p = 0; p < passes; ++p) {
+      float v[4];
 #pragma unroll
-    for (int k = 0; k < BATCH; ++k) {
-      const int q = q0 + k * THREADS;
-      if (q < q1) {
-        float acc = 0.0f;
-        for (int p = 0; p < passes; ++p)
-          acc = __fadd_rn(acc, hit[k] ? t[a[k]] : 0.0f);
-        out[q] = acc;
-      }
+      for (int k = 0; k < 4; ++k) v[k] = hit[k] ? t[a[k]] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
     }
+    if (VEC && n == 4) {
+      store4(out + q, acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < n) out[q + k] = acc[k];
+    }
+    r = rn;
+    l = ln;
+    q = qn;
+    n = nn;
+    j += ROWSEL_THREADS;
   }
 }
 
@@ -302,13 +409,14 @@ std::mutex facts_mu;
 std::vector<LaunchFact> facts;
 
 // Blocks of `fn` (`threads` a block, `smem` bytes of dynamic shared memory)
-// that fit on the current device at once.  The first call for a (kernel,
-// device, size) raises the kernel's dynamic shared-memory limit where the
-// size needs it (the limit only grows) and asks the runtime; later calls
-// find the answer kept.  A refused request leaves no error behind for the
-// next launch's cudaGetLastError().
+// that fit on the current device at once, at most `per_sm_max` on an SM.
+// The first call for a (kernel, device, size) raises the kernel's dynamic
+// shared-memory limit where the size needs it (the limit only grows) and
+// asks the runtime; later calls find the answer kept (`per_sm_max` is a
+// constant of each kernel).  A refused request leaves no error behind for
+// the next launch's cudaGetLastError().
 cudaError_t resident_blocks(const void* fn, int threads, int smem,
-                            int* resident) {
+                            int per_sm_max, int* resident) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -335,19 +443,19 @@ cudaError_t resident_blocks(const void* fn, int threads, int smem,
     cudaGetLastError();
     return e;
   }
-  facts.push_back({fn, dev, smem, sms * per_sm});
-  *resident = sms * per_sm;
+  *resident = sms * std::min(per_sm, per_sm_max);
+  facts.push_back({fn, dev, smem, *resident});
   return cudaSuccess;
 }
 
-// Blocks of a grid-stride kernel: as many as fit on the card at once, no
-// more than the work needs.
-cudaError_t grid_for(const void* fn, int smem, int n_groups, int* blocks) {
+// Blocks of a kernel that loops over its work: as many as fit on the card
+// at once (at most `per_sm_max` on an SM), no more than `want`.
+cudaError_t grid_for(const void* fn, int threads, int smem, int per_sm_max,
+                     long long want, int* blocks) {
   int resident = 0;
-  const cudaError_t e = resident_blocks(fn, THREADS, smem, &resident);
-  const int per_block = THREADS * BATCH;
-  *blocks = std::max(1, std::min((n_groups + per_block - 1) / per_block,
-                                 resident));
+  const cudaError_t e =
+      resident_blocks(fn, threads, smem, per_sm_max, &resident);
+  *blocks = (int)std::max(1LL, std::min(want, (long long)resident));
   return e;
 }
 
@@ -371,22 +479,34 @@ extern "C" int mcl_row_gather(const void* tab, const int* idx, void* out,
 extern "C" int mcl_flat_gather(const float* tab, const int* idx, float* out,
                                int n_tab, int n_out, int off, int shared,
                                cudaStream_t stream) {
-  const int n_groups = n_out / 4;
+  const int n = n_out / 4;
+  if (n == 0) return (int)cudaSuccess;
+  if (!shared) {             // G9: a group a thread, a grid sized to the work
+    flat_gather_kernel<false, THREADS, 1, false>
+        <<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+            tab, idx, out, n_tab, n, off);
+    return (int)cudaGetLastError();
+  }
+  const int smem = n_tab * 4;
   int blocks = 0;
   cudaError_t e;
-  if (shared) {
-    const int smem = n_tab * 4;
-    e = grid_for((const void*)flat_gather_kernel<true>, smem, n_groups,
+  if (smem <= SMALL_TAB) {
+    // G3: a table too small to repay one block an SM; as many blocks of
+    // THREADS as fit, BATCH groups a thread
+    constexpr int B = BATCH;
+    e = grid_for((const void*)flat_gather_kernel<true, THREADS, B, false>,
+                 THREADS, smem, INT_MAX, (n + THREADS * B - 1) / (THREADS * B),
                  &blocks);
     if (e != cudaSuccess) return (int)e;
-    flat_gather_kernel<true><<<blocks, THREADS, smem, stream>>>(
-        tab, idx, out, n_tab, n_groups, off);
+    flat_gather_kernel<true, THREADS, B, false>
+        <<<blocks, THREADS, smem, stream>>>(tab, idx, out, n_tab, n, off);
   } else {
-    e = grid_for((const void*)flat_gather_kernel<false>, 0, n_groups,
-                 &blocks);
+    constexpr int T = MCL_FLAT_THREADS, B = BATCH;
+    e = grid_for((const void*)flat_gather_kernel<true, T, B, true>, T, smem,
+                 MCL_FLAT_PER_SM, (n + T * B - 1) / (T * B), &blocks);
     if (e != cudaSuccess) return (int)e;
-    flat_gather_kernel<false><<<blocks, THREADS, 0, stream>>>(
-        tab, idx, out, n_tab, n_groups, off);
+    flat_gather_kernel<true, T, B, true><<<blocks, T, smem, stream>>>(
+        tab, idx, out, n_tab, n, off);
   }
   return (int)cudaGetLastError();
 }
@@ -401,8 +521,8 @@ extern "C" int mcl_col_gather(const float* tab, const int* idx, float* out,
   if (mode == 2) {
     const int smem = (tab_rows + 1) * LANES * 4;
     int blocks = 0;
-    e = grid_for((const void*)transpose_gather_kernel, smem, n_groups,
-                 &blocks);
+    e = grid_for((const void*)transpose_gather_kernel, THREADS, smem, INT_MAX,
+                 (n_groups + THREADS * BATCH - 1) / (THREADS * BATCH), &blocks);
     if (e != cudaSuccess) return (int)e;
     transpose_gather_kernel<<<blocks, THREADS, smem, stream>>>(
         tab, idx, out, tab_rows, n_groups);
@@ -422,13 +542,25 @@ extern "C" int mcl_rowsel_accumulate(const float* tab, const int* rows,
                                      const int* lanes, float* out,
                                      int tab_rows, int nq, int passes,
                                      int per_block, cudaStream_t stream) {
+  if (nq < 0 || per_block < 1) return (int)cudaErrorInvalidValue;
+  if (nq == 0) return (int)cudaSuccess;
   const int smem = tab_rows * LANES * 4;
-  int resident = 0;
-  const cudaError_t e =
-      resident_blocks((const void*)rowsel_kernel, THREADS, smem, &resident);
+  const long long tiles = ((long long)nq + per_block - 1) / per_block;
+  // whole groups of four queries start on 16-byte boundaries
+  const bool vec = per_block % 4 == 0 &&
+                   (((uintptr_t)rows | (uintptr_t)lanes | (uintptr_t)out) &
+                    15) == 0;
+  const void* fn = vec ? (const void*)rowsel_kernel<true>
+                       : (const void*)rowsel_kernel<false>;
+  int blocks = 0;
+  const cudaError_t e = grid_for(fn, ROWSEL_THREADS, smem, MCL_ROWSEL_PER_SM,
+                                 tiles, &blocks);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (nq + per_block - 1) / per_block;
-  rowsel_kernel<<<blocks, THREADS, smem, stream>>>(
-      tab, rows, lanes, out, tab_rows, nq, passes, per_block);
+  if (vec)
+    rowsel_kernel<true><<<blocks, ROWSEL_THREADS, smem, stream>>>(
+        tab, rows, lanes, out, tab_rows, nq, passes, per_block);
+  else
+    rowsel_kernel<false><<<blocks, ROWSEL_THREADS, smem, stream>>>(
+        tab, rows, lanes, out, tab_rows, nq, passes, per_block);
   return (int)cudaGetLastError();
 }

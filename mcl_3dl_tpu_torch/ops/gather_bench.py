@@ -124,18 +124,20 @@ def _row_gather(wrapper, tab, idx, off, width, dtype):
 
 
 def _flat_gather(wrapper, tab, idx, off, shared):
+    # each tensor attribute is read once, as in ``_col_gather``
     if not tab.is_cuda:
         return flat_gather_plain(tab, idx, off)
+    shape = idx.shape
+    if shape[-1] != LANES:
+        raise ValueError(f"idx must end in {LANES} lanes, got {tuple(shape)}")
     dev = tab.device
-    if idx.shape[-1] != LANES:
-        raise ValueError(f"idx must end in {LANES} lanes, got {tuple(idx.shape)}")
-    args = (_ptr(tab, "tab", torch.float32, None, dev),
+    args = (_ptr(tab, "tab", torch.float32),
             _ptr(idx, "idx", torch.int32, None, dev))
-    out = torch.empty((idx.numel() // LANES, LANES), dtype=torch.float32,
-                      device=dev)
+    n = idx.numel()
+    out = torch.empty(n // LANES, LANES, dtype=torch.float32, device=dev)
     build.launch("mcl_flat_gather", *args, out.data_ptr(),
-                 _pow2(tab.numel(), "tab.numel()"), idx.numel(),
-                 _i32(off, "off"), int(shared))
+                 _pow2(tab.numel(), "tab.numel()"), n, _i32(off, "off"),
+                 shared)
     wrapper.launches += 1
     return out
 
@@ -183,18 +185,18 @@ def lane_gather_u8(tab, idx, off=0):
 def twostage_gather(tab, idx, off=0):
     """G3: ``tab`` [8, 128] f32 (one 1024-entry table in shared memory),
     ``idx`` [R, 128] i32 -> [R, 128] f32."""
-    return _flat_gather(twostage_gather, tab, idx, off, shared=True)
+    return _flat_gather(twostage_gather, tab, idx, off, shared=1)
 
 
 def fancy_gather(tab, idx):
     """G6: ``tab`` [128, 128] f32 in shared memory, ``idx`` [nb, BQ, 128]
     i32 -> [nb*BQ, 128] f32."""
-    return _flat_gather(fancy_gather, tab, idx, 0, shared=True)
+    return _flat_gather(fancy_gather, tab, idx, 0, shared=1)
 
 
 def rowloop_gather(tab, idx):
     """G9: G6's function, with the table read through L1/L2."""
-    return _flat_gather(rowloop_gather, tab, idx, 0, shared=False)
+    return _flat_gather(rowloop_gather, tab, idx, 0, shared=0)
 
 
 def sub_gather(tab, idx, off=0):
@@ -225,20 +227,25 @@ def transpose_gather(tab, idx):
 
 def rowsel_accumulate(tab, rows, lanes, passes=16, tile_rows=8):
     """G10: ``tab`` [R, 128] f32 in shared memory; ``rows``, ``lanes``
-    i32 of one shape -> f32 of that shape.  A block takes
-    ``tile_rows * 128`` queries (the script's tile height S)."""
+    i32 of one shape -> f32 of that shape.  The queries go in tiles of
+    ``tile_rows * 128`` (the script's tile height S), dealt out in turn to
+    one block on each SM.  ``rows`` and ``lanes`` need no alignment: the
+    kernel reads them four at a time where they are 16-byte aligned."""
     if tile_rows < 1:
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
     if not tab.is_cuda:
         return rowsel_plain(tab, rows, lanes, passes)
+    # each tensor attribute is read once, as in ``_col_gather``
+    shape, qshape = tab.shape, rows.shape
+    if len(shape) != 2 or shape[1] != LANES:
+        raise ValueError(f"tab must be [R, {LANES}], got {tuple(shape)}")
     dev = tab.device
-    nr = tab.shape[0]
-    args = (_ptr(tab, "tab", torch.float32, (nr, LANES), dev),
+    args = (_ptr(tab, "tab", torch.float32),
             build.check(rows, "rows", torch.int32, None, dev),
-            build.check(lanes, "lanes", torch.int32, rows.shape, dev))
-    out = torch.empty(rows.shape, dtype=torch.float32, device=dev)
-    build.launch("mcl_rowsel_accumulate", *args, out.data_ptr(), nr,
-                 rows.numel(), _i32(passes, "passes"),
+            build.check(lanes, "lanes", torch.int32, qshape, dev))
+    out = torch.empty(qshape, dtype=torch.float32, device=dev)
+    build.launch("mcl_rowsel_accumulate", *args, out.data_ptr(), shape[0],
+                 out.numel(), _i32(passes, "passes"),
                  _i32(tile_rows * LANES, "tile_rows * 128"))
     rowsel_accumulate.launches += 1
     return out

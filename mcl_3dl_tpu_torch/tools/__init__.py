@@ -55,6 +55,9 @@ class Lookup:
     flops: int = 0              # f32 arithmetic besides the index math
     library: Optional[Callable] = None
     library_label: str = ""
+    # the least time of the kernel's shared-memory lookups, where they
+    # bound it more than its bytes do (G10; ``exp_rowsel_shape.lookup_bound``)
+    lookup_bound_ms: Optional[float] = None
     note: str = ""
     ms: Optional[float] = None          # set by ``run``
     library_ms: Optional[float] = None  # set by ``run`` where ``library`` is
@@ -71,6 +74,15 @@ class Lookup:
     @property
     def bound_by(self) -> str:
         return bound(self.nbytes, self.flops)[1]
+
+    @property
+    def bound_text(self) -> str:
+        """The bound as the tools print it, the lookup rate's beside it."""
+        text = f"bound {self.bound_ms:.4f} ms by {self.bound_by}"
+        if self.lookup_bound_ms is not None:
+            text += (f", {self.lookup_bound_ms:.4f} ms by the shared-memory"
+                     " lookup rate")
+        return text
 
 
 def bound(nbytes, flops=0):
@@ -106,6 +118,16 @@ def card(device) -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_rate():
+    """``(SMs, Hz)``: the card's streaming multiprocessors and the maximum
+    of its SM clock as ``nvidia-smi`` reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count, mhz * 1e6
 
 
 def time_ms(fn, iters, device="cuda") -> float:
@@ -204,9 +226,8 @@ def run(lookups, device, iters=25):
         note = f" ({e.note})" if e.note else ""
         print(f"{e.tag} {e.name} [{kind}, {e.replaces}]: {ms:.4f} ms on "
               f"{device.type}{_split_text(e.device_ms, e.host_ms)}, "
-              f"{e.lookups / ms / 1e6:.3f} G lookups/s, bound "
-              f"{e.bound_ms:.4f} ms by {e.bound_by} ({e.nbytes} B at 3.35 TB/s)"
-              f"{lib}{note} [{where}]", flush=True)
+              f"{e.lookups / ms / 1e6:.3f} G lookups/s, {e.bound_text} "
+              f"({e.nbytes} B at 3.35 TB/s){lib}{note} [{where}]", flush=True)
     return lookups
 
 

@@ -1,35 +1,49 @@
 """The lookup kernels G1-G10 of this package against other builds of
 them, timed in turns on the card at the JAX scripts' sizes.
 
-    python -m mcl_3dl_tpu_torch.tools.gather_pairs [--pairs 5] [NAME=DIR ...]
+    python -m mcl_3dl_tpu_torch.tools.gather_pairs [--pairs 5] [--variants]
+        [NAME=DIR ...]
 
 Each ``DIR`` is another copy of the ``mcl_3dl_tpu_torch`` package (an
 older commit's, or one with an edited ``csrc/gather_bench.cu``).  Its
 kernels are built from its own sources by its own ``ops/build.py`` and
 launched through this package's wrappers (``ops/gather_bench.py``) with
 that build's ``check`` and ``launch``, so each build's whole launch path
-is timed, not only its kernels.  The inputs are the three lookup tools'
-(``exp_gather.lookups(risky=True)``, ``exp_gather2.lookups``,
-``exp_rowsel_shape.lookups``), built once, followed by G5 at larger query
-counts (``SUB_SWEEP``), up to G7's 2^24.
+is timed, not only its kernels.  ``--variants`` adds the copies of
+``VARIANTS``, this package with other block shapes for G6 and G10 (the
+only kernels whose shapes are macros): ``#define`` lines in front of the
+copy's ``csrc/gather_bench.cu``, under the git-ignored
+``build/variants/``.
+
+The inputs are the three lookup tools' (``exp_gather.lookups(risky=True)``,
+``exp_gather2.lookups``, ``exp_rowsel_shape.lookups``), built once,
+followed by G5 at larger query counts (``SUB_SWEEP``, up to G7's 2^24)
+and G10 at S=8 with fewer passes (``PASS_SWEEP``: with 0 passes it only
+copies its table and streams its queries).
 
 In each of ``--pairs`` rounds every build's kernel is timed once
-(``time_ms``, the median of 25 launches), in list order in even rounds
-and reversed in odd ones, and the kernel's PyTorch library call once
-beside them.  Printed per kernel and build: the median and quartiles
-over the rounds, the ratio to the byte bound, in how many rounds this
-package's build was faster, the device-only time of a call
-(``tools.device_ms``) and whether the whole output is ``torch.equal`` to
-the plain version.  First it prints the host time of G5's launch path,
-piece by piece (``launch_path``).  Every line carries the card's
+(``time_ms``, the median of 25 launches, and ``tools.device_ms``, a
+captured graph of 25 launches), in list order in even rounds and
+reversed in odd ones, and the kernel's PyTorch library call once beside
+them.  Printed per kernel and build: the median and quartiles of
+``time_ms`` over the rounds, the ratio to the byte bound (with G10's
+lookup-rate bound beside it), in how many rounds this package's build
+was faster, the median device time of a call and in how many rounds this
+build's was shorter, the host time of a call (``tools.host_ms``, once),
+and whether the whole output is ``torch.equal`` to the plain version;
+after each kernel, the SM clock ``nvidia-smi`` reads.  First it prints the host time of G5's launch
+path, piece by piece (``launch_path``).  Every line carries the card's
 ``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import shutil
 import statistics
+import subprocess
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -45,6 +59,35 @@ from mcl_3dl_tpu_torch.tools.grouped_pairs import (_quartiles, launching,
 
 L = ogb.LANES
 SUB_SWEEP = (1 << 17, 1 << 20, 1 << 23)    # G5 query counts beyond the script's
+PASS_SWEEP = (0, 4)                        # G10 passes besides the script's 16
+# block shapes of G6 and G10 besides this package's one 768-thread
+# block an SM: threads a block and the most blocks an SM holds, as the
+# macros at the top of csrc/gather_bench.cu name them
+VARIANTS = {f"{per_sm}x{threads}": dict(
+    MCL_FLAT_THREADS=threads, MCL_FLAT_PER_SM=per_sm,
+    MCL_ROWSEL_THREADS=threads, MCL_ROWSEL_PER_SM=per_sm)
+    for per_sm, threads in ((1, 1024), (2, 512), (3, 256))}
+
+
+def variant(name, defines):
+    """The build module of a copy of this package under
+    ``build/variants/<name>/`` whose ``csrc/gather_bench.cu`` starts with
+    ``#define`` lines for ``defines``.  Raises ``ValueError`` for a macro
+    the source does not guard with ``#ifndef``: the copy would build this
+    package's kernels unchanged, and their times would pass for another
+    design's."""
+    pkg = Path(build.__file__).resolve().parents[1]
+    source = (pkg / "csrc" / "gather_bench.cu").read_text()
+    unknown = [k for k in defines if f"#ifndef {k}\n" not in source]
+    if unknown:
+        raise ValueError(f"csrc/gather_bench.cu has no #ifndef for {unknown}")
+    dst = pkg.parent / "build" / "variants" / name / pkg.name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(pkg, dst, ignore=shutil.ignore_patterns("__pycache__"))
+    cu = dst / "csrc" / "gather_bench.cu"
+    cu.write_text("".join(f"#define {k} {v}\n" for k, v in defines.items())
+                  + source)
+    return load_build(dst)
 
 
 def sub_sweep(device, counts=SUB_SWEEP):
@@ -66,12 +109,33 @@ def sub_sweep(device, counts=SUB_SWEEP):
     return out
 
 
+def pass_sweep(device, passes=PASS_SWEEP):
+    """G10 (``rowsel_accumulate``) at the script's size and S=8 with each
+    number of ``passes``: its time against the passes splits the table
+    copy and query stream from the lookups."""
+    rows = []
+    for k in passes:
+        e, = exp_rowsel_shape.lookups(device, tiles=(8,), passes=k)
+        e.note = f"S=8, {k} passes"
+        rows.append(e)
+    return rows
+
+
 def lookups(device):
     """Every G kernel's experiment at the JAX scripts' sizes, then the G5
-    sweep; the tools' library-only rows (A, B) are left out."""
+    and G10 sweeps; the tools' library-only rows (A, B) are left out."""
     rows = (exp_gather.lookups(device, risky=True) + exp_gather2.lookups(device)
             + exp_rowsel_shape.lookups(device))
-    return [e for e in rows if e.wrapper is not None] + sub_sweep(device)
+    return ([e for e in rows if e.wrapper is not None] + sub_sweep(device)
+            + pass_sweep(device))
+
+
+def sm_clock():
+    """The SM clock and its maximum as ``nvidia-smi`` reads them now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def launch_path(device, others, where):
@@ -105,37 +169,42 @@ def launch_path(device, others, where):
         flush=True)
 
 
-def compare(rows, others, pairs, where):
+def compare(rows, others, pairs, where, clock=sm_clock):
     """Time each experiment of each build in ``pairs`` rounds; print and
-    return ``[(experiment, {build: [ms, ...]})]`` (the library call's
-    times under ``"library"``)."""
+    return ``[(experiment, {build: [ms, ...]}, {build: [device ms, ...]})]``
+    (the library call's times under ``"library"``)."""
     versions = [("this", None)] + list(others.items())
     out = []
     for e in rows:
         label = f"{e.tag} {e.name}" + (f" ({e.note})" if e.note else "")
         want = e.plain()
-        equal, dev = {}, {}
+        equal, host = {}, {}
         for name, lib in versions:
             with launching(lib, ogb):
                 equal[name] = torch.equal(e.run(), want)
-                dev[name] = device_ms(e.run)
+                host[name] = host_ms(e.run)
         times = {name: [] for name, _ in versions + [("library", None)]}
+        dev = {name: [] for name, _ in versions}
         for r in range(pairs):
             for name, lib in round_order(versions, r):
                 with launching(lib, ogb):
                     times[name].append(time_ms(e.run, 25))
+                    dev[name].append(device_ms(e.run))
             if e.library is not None:
                 times["library"].append(time_ms(e.library, 25))
         for name, _ in versions:
-            xs = times[name]
+            xs, ds = times[name], dev[name]
             q1, q3 = _quartiles(xs)
             med = statistics.median(xs)
             wins = sum(a < b for a, b in zip(times["this"], xs))
+            dwins = sum(a < b for a, b in zip(dev["this"], ds))
             vs = "" if name == "this" else f", this faster in {wins} of {pairs}"
+            dvs = "" if name == "this" else f", this shorter in {dwins} of {pairs}"
             print(f"{label} {name}: median {med:.4f} ms [q1 {q1:.4f}, q3 "
                   f"{q3:.4f}] over {pairs} rounds, {med / e.bound_ms:.2f}x the "
-                  f"bound {e.bound_ms:.4f} ms by {e.bound_by}{vs}, device "
-                  f"{dev[name]:.4f} ms a call, equal to plain: {equal[name]} "
+                  f"{e.bound_text}{vs}, device "
+                  f"{statistics.median(ds):.4f} ms a call{dvs}, host "
+                  f"{host[name]:.4f} ms a call, equal to plain: {equal[name]} "
                   f"[{where}]", flush=True)
         if times["library"]:
             xs = times["library"]
@@ -143,13 +212,16 @@ def compare(rows, others, pairs, where):
             print(f"{label} {e.library_label}: median {statistics.median(xs):.4f}"
                   f" ms [q1 {q1:.4f}, q3 {q3:.4f}] over {pairs} rounds "
                   f"(library call) [{where}]", flush=True)
-        out.append((e, times))
+        print(f"{label}: SM clock, max after the rounds: {clock()}", flush=True)
+        out.append((e, times, dev))
     return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pairs", type=int, default=5)
+    ap.add_argument("--variants", action="store_true",
+                    help="also time the block-shape variants of G6 and G10")
     ap.add_argument("others", nargs="*", metavar="NAME=DIR")
     a = ap.parse_args(argv)
     device = resolve_device()
@@ -157,6 +229,8 @@ def main(argv=None):
     for spec in a.others:
         name, _, path = spec.partition("=")
         others[name] = load_build(path)
+    if a.variants:
+        others.update((n, variant(n, d)) for n, d in VARIANTS.items())
     # every build compiles its own sources; nvcc runs in subprocesses
     with ThreadPoolExecutor(max_workers=8) as ex:
         list(ex.map(lambda m: m.build(), [build, *others.values()]))

@@ -94,12 +94,12 @@ def case_g4():
     return got, ogb.lane_gather_u8(*args)
 
 
-def case_g3():
+def case_g3(off=OFF):
     rng = np.random.default_rng(3)
     rows, block = 32, 16
     tab = rng.standard_normal((8, L)).astype(np.float32)
     idx = rng.integers(0, 1024, (rows, L), dtype=np.int32)
-    i = (jnp.asarray(idx) + OFF) % 1024
+    i = (jnp.asarray(idx) + off) % 1024
     got = pl.pallas_call(
         _body("exp_gather.py", "twostage_kernel"),
         out_shape=jax.ShapeDtypeStruct((rows, L), jnp.float32),
@@ -108,7 +108,7 @@ def case_g3():
                   pl.BlockSpec((block, L), lambda b: (b, 0), **VMEM)],
         out_specs=pl.BlockSpec((block, L), lambda b: (b, 0), **VMEM),
         interpret=True)(jnp.asarray(tab), i)
-    return got, ogb.twostage_gather(_t(tab), _t(idx), OFF)
+    return got, ogb.twostage_gather(_t(tab), _t(idx), off)
 
 
 def case_g5():
@@ -174,16 +174,20 @@ def case_g8():
     return got, ogb.transpose_gather(_t(tab), _t(idx))
 
 
-def case_g10():
-    """``make(S)`` of exp_rowsel_shape.py:41-81 for S in {8, 16}."""
+def case_g10(kk=16, tiles=(8, 16), outside=False):
+    """``make(S)`` of exp_rowsel_shape.py:41-81 for S in ``tiles``; with
+    ``outside``, some rows lie outside the table (negative ones too)."""
     rng = np.random.default_rng(10)
-    r, nq, kk = 144, 2048, 16
+    r, nq = 144, 2048
     tab = rng.uniform(0, 1, (r, L)).astype(np.float32)
     rows = rng.integers(0, r, nq).astype(np.int32).reshape(-1, L)
+    if outside:
+        rows[::3, ::5] = rng.integers(-2 ** 31, 0, rows[::3, ::5].shape)
+        rows[1::3, ::7] = rng.integers(r, 2 ** 31, rows[1::3, ::7].shape)
     lanes = rng.integers(0, L, nq).astype(np.int32).reshape(-1, L)
     kern = _body("exp_rowsel_shape.py", "kern", R=r)
     gots, ours = [], []
-    for s in (8, 16):
+    for s in tiles:
         gots.append(pl.pallas_call(
             partial(kern, kk=kk),
             grid=(nq // (s * L),),
@@ -212,6 +216,25 @@ def test_port_matches_jax_body(tag):
     assert ours.dtype == got.dtype and ours.shape == got.shape
     assert np.array_equal(ours, got)
     assert np.unique(ours).size > 1
+
+
+@pytest.mark.parametrize("off", [-5, 2 ** 31 - 3])
+def test_g3_offset_wraps_like_jax(off):
+    """G3's ``(idx + off) % 1024`` where the offset is negative or makes
+    the int32 sum overflow."""
+    got, ours = case_g3(off)
+    assert np.array_equal(ours.numpy(), np.asarray(got))
+
+
+@pytest.mark.parametrize("kk", [0, 1, 3])
+def test_g10_rows_outside_the_table_like_jax(kk):
+    """G10 with rows below 0 and past the table, which the JAX body's
+    select leaves at 0.0, and with 0, 1 and 3 passes."""
+    got, ours = case_g10(kk, tiles=(1,), outside=True)
+    got, ours = np.asarray(got), ours.numpy()
+    assert np.array_equal(ours, got)
+    assert (ours[0, ::3, ::5] == 0).all() and (ours[0, 1::3, ::7] == 0).all()
+    assert kk == 0 or np.unique(ours).size > 1
 
 
 TOOLS = {"exp_gather": (exp_gather, dict(q=128 * 37, risky=True)),
@@ -266,6 +289,49 @@ def test_tool_needs_cuda_by_default(tool, monkeypatch):
         mod.main(iters=1, **sizes)
 
 
+def test_g10_lookup_bound_is_the_bank_rate():
+    """2^24 lookups at one bank-conflict cycle a clock on each of 132 SMs:
+    ~3.5 cycles a warp read for 32 uniform lanes, 0.0020 ms without
+    conflicts, 0 ms for no passes."""
+    ms, words = exp_rowsel_shape.lookup_bound(1 << 20, 16, 132, 1.98e9,
+                                              warps=20_000)
+    assert 3.4 < words < 3.65
+    free = (1 << 24) / 32 / (132 * 1.98e9) * 1e3
+    assert abs(ms - free * words) < 1e-12
+    assert abs(free - 0.00201) < 1e-5
+    assert exp_rowsel_shape.lookup_bound(1 << 20, 0, 132, 1.98e9,
+                                         warps=100)[0] == 0
+
+
+def test_g10_bound_text_names_the_lookup_rate_where_set():
+    """The tools print G10's lookup-rate bound beside its byte bound; the
+    rate is the card's, so on the CPU there is none."""
+    e, = exp_rowsel_shape.lookups(torch.device("cpu"), nq=2048, tiles=(8,))
+    assert e.lookup_bound_ms is None
+    assert e.bound_text == f"bound {e.bound_ms:.4f} ms by bytes"
+    e.lookup_bound_ms = 0.0071
+    assert e.bound_text == (f"bound {e.bound_ms:.4f} ms by bytes, 0.0071 ms"
+                            " by the shared-memory lookup rate")
+
+
+def test_sm_rate_reads_the_card(monkeypatch):
+    """SMs from the device properties, the SM clock's maximum from
+    ``nvidia-smi`` in MHz."""
+    from mcl_3dl_tpu_torch import tools
+    seen = []
+
+    def fake_run(cmd, **kw):
+        seen.append(cmd)
+        return types.SimpleNamespace(stdout="1980\n")
+
+    monkeypatch.setattr(tools.subprocess, "run", fake_run)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda i: (
+        types.SimpleNamespace(multi_processor_count=132)))
+    assert tools.sm_rate() == (132, 1.98e9)
+    assert seen == [["nvidia-smi", "--query-gpu=clocks.max.sm",
+                     "--format=csv,noheader,nounits"]]
+
+
 def test_gather_pairs_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -287,14 +353,74 @@ def test_gather_pairs_alternates_builds(monkeypatch, capsys):
 
     monkeypatch.setattr(gather_pairs, "time_ms", fake_time_ms)
     monkeypatch.setattr(gather_pairs, "device_ms", lambda fn: 0.5)
-    res = gather_pairs.compare(rows, {"other": other}, 4, "cpu")
+    monkeypatch.setattr(gather_pairs, "host_ms", lambda fn: 0.25)
+    res = gather_pairs.compare(rows, {"other": other}, 4, "cpu",
+                               clock=lambda: "1980 MHz, 1980 MHz")
     assert order == ["this", "other", "library", "other", "this", "library"] * 2
     assert gather_pairs.ogb.build is build
-    (e, times), = res
+    (e, times, dev), = res
     assert e is rows[0] and sorted(times) == ["library", "other", "this"]
+    assert dev == {"this": [0.5] * 4, "other": [0.5] * 4}
     out = capsys.readouterr().out
     assert "G7 sublane_gather other: " in out and "this faster in 2 of 4" in out
     assert "equal to plain: True" in out
+    assert ("device 0.5000 ms a call, this shorter in 0 of 4, host 0.2500 ms"
+            " a call") in out
+    assert "SM clock, max after the rounds: 1980 MHz, 1980 MHz" in out
+
+
+def test_gather_pairs_variant_is_a_copy_with_defines(tmp_path, monkeypatch):
+    """A variant is this package copied under ``build/variants/<name>/``
+    with ``#define`` lines in front of its ``csrc/gather_bench.cu``; its
+    build module compiles that copy (another source hash)."""
+    pkg = pathlib.Path(build.__file__).resolve().parents[1]
+    fake_build = tmp_path / pkg.name / "ops" / "build.py"
+    fake_build.parent.mkdir(parents=True)
+    monkeypatch.setattr(gather_pairs.build, "__file__", str(fake_build))
+    (tmp_path / pkg.name / "csrc").mkdir()
+    for f in ("build.py",):
+        (tmp_path / pkg.name / "ops" / f).write_text((pkg / "ops" / f).read_text())
+    for f in build.SOURCES:
+        (tmp_path / pkg.name / "csrc" / f).write_text((pkg / "csrc" / f).read_text())
+    mod = gather_pairs.variant("3x256", gather_pairs.VARIANTS["3x256"])
+    copy = tmp_path / "build" / "variants" / "3x256" / pkg.name
+    assert pathlib.Path(mod.CSRC) == copy / "csrc"
+    text = (copy / "csrc" / "gather_bench.cu").read_text()
+    head = text.splitlines()[:4]
+    assert head == ["#define MCL_FLAT_THREADS 256", "#define MCL_FLAT_PER_SM 3",
+                    "#define MCL_ROWSEL_THREADS 256",
+                    "#define MCL_ROWSEL_PER_SM 3"]
+    assert text.endswith((pkg / "csrc" / "gather_bench.cu").read_text())
+    assert mod._digest() != build._digest()
+    assert not list(copy.rglob("__pycache__"))
+
+
+def test_gather_pairs_variant_refuses_a_macro_the_source_lacks(tmp_path,
+                                                               monkeypatch):
+    """A macro with no ``#ifndef`` in ``csrc/gather_bench.cu`` would build
+    this package's kernels unchanged: no copy is made."""
+    pkg = pathlib.Path(build.__file__).resolve().parents[1]
+    (tmp_path / "pkg" / "csrc").mkdir(parents=True)
+    (tmp_path / "pkg" / "csrc" / "gather_bench.cu").write_text(
+        (pkg / "csrc" / "gather_bench.cu").read_text())
+    monkeypatch.setattr(gather_pairs.build, "__file__",
+                        str(tmp_path / "pkg" / "ops" / "build.py"))
+    with pytest.raises(ValueError, match="MCL_FLAT_BATCH"):
+        gather_pairs.variant("b4", dict(MCL_FLAT_THREADS=512,
+                                        MCL_FLAT_BATCH=4))
+    assert not (tmp_path / "build").exists()
+
+
+def test_gather_pairs_pass_sweep_rows_compute_g10():
+    """G10 with 0 and 4 passes: the rows' plain versions add that many
+    lookups (none: zeros)."""
+    rows = gather_pairs.pass_sweep(torch.device("cpu"))
+    assert [e.lookups for e in rows] == [0, 4 << 20]
+    assert [e.note for e in rows] == ["S=8, 0 passes", "S=8, 4 passes"]
+    zero, four = (e.run() for e in rows)
+    assert not zero.any()
+    one = rows[1].library().reshape(four.shape)
+    assert torch.equal(four, one + one + one + one)
 
 
 def test_gather_pairs_sweep_rows_compute_g5():

@@ -2,7 +2,8 @@
 card: bit-equal on every slot whose value the caller keeps (the kernels are
 built with -fmad=false and keep the plain versions' operation order).
 The lookup kernels G1-G10 (``ops/gather_bench.py``), at small sizes with
-ragged block edges, must equal their plain versions everywhere.
+ragged block edges and at the edges of their schedules, must equal their
+plain versions everywhere.
 
 Skipped without a CUDA device.  On the card, with no JAX installed:
 
@@ -298,6 +299,69 @@ def test_transpose_gather_edges_match_plain(cuda, chunks):
     want = ogb.transpose_gather_plain(tab, idx)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# G10 at the edges of its tile walk and of its vector path: (queries,
+# tile_rows, passes, skew).  With skew 1 the queries start 4 bytes into
+# their buffers, so the kernel takes its scalar path.  Tile 1 gives 701
+# tiles (more than the blocks resident on the card) or 77 (fewer); tile 64
+# is taller than all 1000 queries.
+_ROWSEL = {"nq_4099": (4099, 8, 16, 0), "misaligned": (128 * 40 + 3, 8, 16, 1),
+           "passes_0": (1000, 8, 0, 0), "passes_1": (1000, 2, 1, 0),
+           "tiles_701": (128 * 700 + 5, 1, 16, 0), "tiles_77": (128 * 77, 1, 16, 0),
+           "tile_over_nq": (1000, 64, 16, 0)}
+
+
+@pytest.mark.parametrize("case", sorted(_ROWSEL))
+def test_rowsel_edges_match_plain(cuda, case):
+    """Rows outside the table (negative ones, the int32 extremes) read 0.0."""
+    nq, tile_rows, passes, skew = _ROWSEL[case]
+    rng = np.random.default_rng(31)
+    tab = rng.uniform(-1.0, 1.0, (144, 128)).astype(np.float32)
+    rows = rng.integers(-3, 147, nq + skew).astype(np.int32)
+    rows[skew:skew + 6] = [-1, -2 ** 31, 144, 2 ** 31 - 1, 143, 0]
+    lanes = rng.integers(-300, 300, nq + skew).astype(np.int32)
+    t = to_device(cuda)
+    tab, rows, lanes = t(tab), t(rows)[skew:], t(lanes)[skew:]
+    assert (rows.data_ptr() % 16 != 0) == bool(skew)
+    n0 = ogb.rowsel_accumulate.launches
+    got = ogb.rowsel_accumulate(tab, rows, lanes, passes, tile_rows=tile_rows)
+    assert ogb.rowsel_accumulate.launches == n0 + 1
+    want = ogb.rowsel_plain(tab, rows, lanes, passes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert passes == 0 or float(got.abs().sum()) > 0
+
+
+# G3, G6 and G9 (one kernel) in query rows of 128: one row (fewer int4
+# groups than one block's share), and counts that do not divide evenly
+# among the blocks (37 rows: 2 blocks; 1037: 33; 8195: all resident ones).
+# Indices span all of int32, so every one wraps into the table.
+_FLAT_ROWS = {"one_row": 1, "rows_37": 37, "rows_1037": 1037, "rows_8195": 8195}
+
+
+@pytest.mark.parametrize("size", sorted(_FLAT_ROWS))
+@pytest.mark.parametrize("tag", ["G3", "G6", "G9"])
+def test_flat_gather_edges_match_plain(cuda, tag, size):
+    rows = _FLAT_ROWS[size]
+    rng = np.random.default_rng(32)
+    n_tab = 1024 if tag == "G3" else 128 * 128
+    t = to_device(cuda)
+    tab = t(rng.standard_normal((n_tab // 128, 128)).astype(np.float32))
+    idx = t(rng.integers(-2 ** 31, 2 ** 31, (rows, 128)).astype(np.int32))
+    if tag == "G3":
+        calls = [(ogb.twostage_gather, (tab, idx, off))
+                 for off in (5, -5, 2 ** 31 - 3)]
+    else:
+        wrapper = ogb.fancy_gather if tag == "G6" else ogb.rowloop_gather
+        calls = [(wrapper, (tab, idx.view(1, rows, 128)))]
+    for wrapper, args in calls:
+        n0 = wrapper.launches
+        got = wrapper(*args)
+        assert wrapper.launches == n0 + 1
+        want = wrapper.plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), args[2:]
 
 
 def test_launch_follows_current_stream(cuda, monkeypatch):
