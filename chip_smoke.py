@@ -24,7 +24,7 @@ time):
    (1000 back-to-back calls);
 5. where a steady step's time goes: each layer timed on the final state,
    ``push_cloud`` over 20 more scans, and one step under
-   ``torch.profiler`` for the device-busy share (run after phase 6);
+   ``torch.profiler`` for the device-busy share (run last);
 6. the lookup microbenchmarks (kernels G1-G10, ``mcl_3dl_tpu_torch/tools``)
    at the JAX scripts' sizes: launch counts zeroed, the three tools run
    (``exp_gather`` with ``--risky``; each times its kernels and PyTorch
@@ -32,12 +32,26 @@ time):
    a CUDA graph's replay, and host time, from 1000 back-to-back calls),
    counts read; then each kernel's whole output held equal
    (``torch.equal``) to its plain version, and the plain version timed.
+7. global recovery (``tools/recovery.py``): ``MCL3DL(Params(num_particles=64))``
+   on the flagship room world, ``global_localization()`` from 122,328
+   seeds decaying 0.75x a step to 64 particles (the plain gather scores
+   the spread particles), then ``initial_pose`` + ``resize_particles``
+   twice (clustered particles: K1 at 8 and 16 slots on capacities down to
+   1024; a pose tight in attitude: K3 at capacity 512).  Every step must
+   follow ``max(floor(0.75 n), 64)`` and capacity must end at the base
+   bucket; launch counts are zeroed before and read after.  Then K1 at
+   the largest-capacity step it scored and K3 at its 512-capacity step,
+   each against its plain version as in phase 4;
+8. the Tier-3 gate through the port (``tools/run_tier3.py``: with-imu,
+   no-imu and no-odom at 220 steps, the reference's gate math), launch
+   counts zeroed before and read after; a failed gate raises.
 
 Times are medians of CUDA-event timings (``tools.time_ms``); bounds are
 ``tools.bound``: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
 whichever is longer.
 
-The second-to-last line is the card's ``nvidia-smi`` name and power
+Standard output is copied to chiprun_out/chip_smoke.log.  The
+second-to-last line is the card's ``nvidia-smi`` name and power
 limit, the one before it the kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises (exit code
 1); without a CUDA device the script exits 1 before any phase.
@@ -53,6 +67,7 @@ import time
 import numpy as np
 
 STEADY_STEPS = 20              # extra scans timed at steady state
+SEEDS_MIN = 100_000            # global localization: a ~100k-seed search
 
 
 def sh(cmd):
@@ -137,17 +152,153 @@ def lookup_phase(card):
     return rows
 
 
+def global_phase(card, report):
+    """Phase 7: the three global-recovery episodes of ``tools/recovery.py``
+    (``global_localization`` from 122,328 seeds, then two
+    ``resize_particles`` episodes) with the launch counts zeroed before
+    and read after; the decay and the final capacity are checked by the
+    drive.  Then K1 at the largest-capacity step it scored and K3 at the
+    512-capacity step it scored, each against its plain version on the
+    step's state with a fresh scan."""
+    import torch
+    from mcl_3dl_tpu_torch import worlds
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.ops import local_gather as olg
+    from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
+    from mcl_3dl_tpu_torch.tools import recovery
+
+    eng = recovery.engine("cuda")
+    kernels = {"like": og.grouped_like_score, "local": olg.local_score}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = recovery.run(eng, np.random.default_rng(1),
+                       before_step=lambda e: e.pstate,
+                       log=lambda s: print(f"phase 7 {s} {card}", flush=True))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    secs = time.perf_counter() - t0
+    rows = [r for ep in out.values() for r in ep["rows"]]
+    print(f"phase 7 global recovery: {len(rows)} measurements in {secs:.2f}"
+          f" s, launches {launches}, tiers "
+          f"{sorted({(r['tier_like'], r['tier_beam']) for r in rows})} {card}",
+          flush=True)
+    assert out["global"]["seeds"] >= SEEDS_MIN, out["global"]["seeds"]
+    assert all(n > 0 for n in launches.values()), launches
+
+    p = eng.params
+    lp = p.likelihood
+    df = eng.map.df
+    origin = np.array([0.0, 0.0, worlds.SENSOR_Z])
+    scan = worlds.scan(np.random.default_rng(2), recovery.CLOUD_POINTS)
+    _, cloud = eng.prepare_cloud(scan, np.zeros(len(scan), np.int64),
+                                 origin[None].astype(np.float32))
+
+    def inputs(row):
+        st = row["before"]
+        (pts, valid, bpts, blab, bvalid, _, _) = eng.sample_points(
+            *cloud[:3], global_mode=True, global_slots=row["slots"],
+            n_active=st.n_active)
+        rmat, g_like, _ = eng.group(st.pos, st.rot, st.active_mask(), df,
+                                    eng.map.df_beam, pts, valid, bpts, blab,
+                                    bvalid, cloud[3], use_beam=False)
+        return st, pts, valid, rmat, g_like
+
+    k1_row = max((r for r in rows if r["tier_like"] == 0),
+                 key=lambda r: r["capacity"])
+    st, pts, valid, _, (stats, layout, lo, _) = inputs(k1_row)
+    if layout is None:
+        layout = og.build_layout(stats, og.default_overflow_cap(st.capacity))
+    args, kw, bnd, kept = gp.like_case(df, lp, stats, layout, lo, pts, valid)
+    print(f"phase 7 K1 at capacity {st.capacity}, {int(st.n_active)} active,"
+          f" {k1_row['slots']} slots {card}", flush=True)
+    report("like_score_global", "mcl_3dl_tpu_torch/csrc/grouped.cu",
+           "mcl_3dl_tpu/ops/grouped.py:778 (_like_kernel)",
+           lambda: og.grouped_like_score(*args, **kw),
+           lambda: og.like_score_plain(*args, **kw), *bnd, launches["like"],
+           kept, phase=7)
+    del args, layout, stats
+
+    k3_row = next(r for r in rows
+                  if r["tier_like"] == 1 and r["capacity"] == 512)
+    st, pts, valid, rmat, _ = inputs(k3_row)
+    args, kw, bnd, kept = gp.local_case(df, lp, st.pos, rmat, pts, valid)
+    print(f"phase 7 K3 at capacity {st.capacity}, {int(st.n_active)} active,"
+          f" {k3_row['slots']} slots {card}", flush=True)
+    report("local_score_global", "mcl_3dl_tpu_torch/csrc/local_gather.cu",
+           "mcl_3dl_tpu/ops/local_gather.py:44 (_score_kernel)",
+           lambda: olg.local_score(*args, **kw),
+           lambda: olg.local_score_plain(*args, **kw), *bnd,
+           launches["local"], kept, phase=7)
+
+
+def gate_phase(card):
+    """Phase 8: the Tier-3 gate (with-imu, no-imu, no-odom at 220 steps)
+    through the port on the card, launch counts zeroed before and read
+    after; a failed gate raises.  The result goes to
+    chiprun_out/tier3_gate.json."""
+    import torch
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.ops import local_gather as olg
+    from mcl_3dl_tpu_torch.tools import run_tier3
+
+    kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
+               "local": olg.local_score}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    traces = {}
+    result = run_tier3.run_all(device="cuda", traces=traces)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    result["device"] = "cuda"
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/tier3_gate.json", "w") as f:
+        json.dump(result, f, indent=1)
+    for name, trace in traces.items():
+        g = result[name]
+        tiers = {}
+        for t in trace:
+            tiers[f"{t[0]},{t[1]}"] = tiers.get(f"{t[0]},{t[1]}", 0) + 1
+        print(f"phase 8 gate {name}: pass {g['pass']}, {g['poses']} poses, max"
+              f" error {g['max_error_m']} m ({g['pose_violations']} "
+              f"violations), max tf diff {g['max_tf_diff_m']} m "
+              f"({g['tf_violations']} violations), kidnap {g.get('kidnap')}, "
+              f"{g['seconds']:.2f} s, tiers (like,beam): {tiers} {card}",
+              flush=True)
+    print(f"phase 8 gate launches {launches} {card}", flush=True)
+    assert result["pass"], result
+
+
+class Tee:
+    """Standard output, copied line for line to a log file, so a runner
+    that returns only the end of the output still leaves the whole
+    log."""
+
+    def __init__(self, stream, path):
+        self.stream = stream
+        self.file = open(path, "w")
+
+    def write(self, text):
+        self.file.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.file.flush()
+        self.stream.flush()
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    os.makedirs("chiprun_out", exist_ok=True)
+    sys.stdout = Tee(sys.stdout, "chiprun_out/chip_smoke.log")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mcl_3dl_tpu_torch import worlds
     from mcl_3dl_tpu_torch.models.beam import grouped_beam_inputs
-    from mcl_3dl_tpu_torch.models.likelihood import (box_queries, box_tables,
-                                                     grouped_like_inputs)
+    from mcl_3dl_tpu_torch.models.likelihood import grouped_like_inputs
     from mcl_3dl_tpu_torch.ops import build
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
@@ -228,7 +379,7 @@ def main() -> int:
     results = []
 
     def report(kname, src, replaces, kernel, plain, bytes_, ops, launches_n,
-               sel):
+               sel, phase=4):
         """Hold ``kernel`` against ``plain`` on the slots ``sel`` (an index
         tensor), time both, and record the kernel's line."""
         got = kernel()
@@ -247,7 +398,7 @@ def main() -> int:
                             replaces=replaces, launches=launches_n,
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=by, library_ms=None))
-        print(f"phase 4 {kname}: bit-equal on {sel.numel()} slots, {ms:.4f} ms "
+        print(f"phase {phase} {kname}: bit-equal on {sel.numel()} slots, {ms:.4f} ms "
               f"(device {dev_ms:.4f} + host {host_ms:.4f} a call; bound "
               f"{bound_ms:.4f} ms by {by}), plain {plain_ms:.2f} ms {card}",
               flush=True)
@@ -267,21 +418,14 @@ def main() -> int:
            *inp.beam_bound, launches["beam"], inp.kept)
 
     # K3 at 96 points x 1M particles (tier-1 box tables of this state)
-    iq, lo3, ext = box_queries(df, st.pos, inp.rmat, like_pts)
-    ltab, lidx = box_tables(df, iq, lo3, like_valid)
-    del iq
-    kw3 = dict(match_dist_min=lp.match_dist_min,
-               match_dist_flat=lp.match_dist_flat, match_weight=lp.match_weight)
-    n = lidx.shape[1]
-    k3_bytes = ltab.numel() * 4 + lidx.numel() * 4 + 2 * n * 4
+    k3, kw3, k3_bound, k3_kept = gp.local_case(df, lp, st.pos, inp.rmat,
+                                               like_pts, like_valid)
     report("local_score", "mcl_3dl_tpu_torch/csrc/local_gather.cu",
            "mcl_3dl_tpu/ops/local_gather.py:44 (_score_kernel)",
-           lambda: olg.local_score(ltab, lidx, **kw3),
-           lambda: olg.local_score_plain(ltab, lidx, **kw3),
-           k3_bytes, lidx.numel() * 8, launches["local"],
-           torch.arange(n, device=lidx.device))
-
-    del ltab, lidx
+           lambda: olg.local_score(*k3, **kw3),
+           lambda: olg.local_score_plain(*k3, **kw3),
+           *k3_bound, launches["local"], k3_kept)
+    del k3
 
     # ---- phase 5: per-layer split of a steady step (CUDA events, 5 runs)
     from mcl_3dl_tpu_torch.models.beam import _overflow_beam_pen
@@ -345,6 +489,12 @@ def main() -> int:
     # ---- phase 6: the lookup microbenchmarks at the JAX scripts' sizes
     results += lookup_phase(card)
 
+    # ---- phase 7: global recovery; K1 and K3 at its shapes
+    global_phase(card, report)
+
+    # ---- phase 8: the Tier-3 gate through the port
+    gate_phase(card)
+
     # phase 5's profiled step comes last: after a torch.profiler session
     # the host path of every later launch reads slower, phase 6's included
     profile_step(eng, scan, origin, card)
@@ -353,6 +503,7 @@ def main() -> int:
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    sys.stdout.flush()
     return 0
 
 

@@ -8,7 +8,10 @@ A host shell around one measurement step on the device:
 * :meth:`MCL3DL._measurement_step` — measure() (:304-898): scan clip and
   sampling, both LIDAR models, the odometry-error prior, weight update,
   bias, pose expectation, jump detection, TF smoothing, covariance,
-  convergence flags, resampling, noise redraw and expansion resetting.
+  convergence flags, resampling, noise redraw, expansion resetting and
+  the global-localization decay.
+* services — resize (:1019-1025), expansion reset (:1026-1038), global
+  localization (:1039-1099) and the one-shot correlative search.
 
 The measurement tiers are chosen on the host: the ``fits`` flags of both
 models come back in one device-to-host read per step, and ``aux`` reports
@@ -19,10 +22,15 @@ Randomness comes from one ``torch.Generator`` on the engine's device,
 seeded from ``Params.seed``; every function below the engine takes its
 draws as tensors (``StepDraws``), so tests can inject other draws.
 
-Not in this slice: global localization and the particle-count decay
-(a step above ``num_particles`` raises), the services, the normal-
-weighted sampler, trilinear sampling, the DDA raycast, correlative
-localization, checkpoints and the fleet.
+Above ``num_particles`` active particles a step runs in global mode: the
+likelihood model samples a slot bucket that follows the reference's point
+ramp (:func:`global_slots`), the beam model is dropped while its global
+budget is 0, and the particle count decays 0.75x a step.  Capacity grows
+and shrinks on the host in power-of-two buckets.
+
+Not ported: landmarks, map updates, the diagnostics services, the normal-
+weighted sampler, trilinear sampling, the DDA raycast, checkpoints and the
+fleet.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from mcl_3dl_tpu_torch import state as st
 from mcl_3dl_tpu_torch.cloud_accum import (CloudAccumulation,
                                            CloudAccumulationPassThrough)
 from mcl_3dl_tpu_torch.config import Params
+from mcl_3dl_tpu_torch.map import correlative as mc
 from mcl_3dl_tpu_torch.map.map_data import MapData
 from mcl_3dl_tpu_torch.map.voxel import voxel_downsample
 from mcl_3dl_tpu_torch.math import filters as mf
@@ -82,6 +91,45 @@ def _bucket(n: int, base: int = 64) -> int:
     while c < n:
         c *= 2
     return c
+
+
+def global_slots(params: Params, n_active: int) -> int:
+    """Likelihood slot bucket of a global-mode step at ``n_active``
+    particles: the reference's point ramp (``num_points * num_particles /
+    n``, floored at ``num_points_global``;
+    lidar_measurement_model_likelihood.cpp:63-77) rounded up to a power of
+    two times the floor and capped at the full budget, the JAX engine's
+    choice of graph one for one."""
+    lp = params.likelihood
+    ramp = max(lp.num_points * params.num_particles // max(n_active, 1),
+               lp.num_points_global)
+    k = max(lp.num_points_global, 1)
+    while k < min(ramp, lp.num_points):
+        k *= 2
+    return min(k, lp.num_points)
+
+
+_HOST_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+                torch.int32: np.int32, torch.int64: np.int64,
+                torch.bool: np.bool_}
+
+
+def to_host(aux: dict) -> dict:
+    """Host copies of a step's ``aux``: every tensor comes over in one
+    device-to-host transfer (packed as float64, which holds each float32,
+    bool and int32 value exactly); other values pass through."""
+    keys = [k for k, v in aux.items() if isinstance(v, torch.Tensor)]
+    if not keys:
+        return dict(aux)
+    flat = torch.cat([aux[k].reshape(-1).to(torch.float64) for k in keys])
+    flat = flat.cpu().numpy()
+    out, off = dict(aux), 0
+    for k in keys:
+        v = aux[k]
+        out[k] = flat[off:off + v.numel()].reshape(tuple(v.shape)).astype(
+            _HOST_DTYPES[v.dtype])
+        off += v.numel()
+    return out
 
 
 def resolve_device(device=None) -> torch.device:
@@ -160,6 +208,7 @@ class MCL3DL:
 
         self.tf_tolerance_base = 0.0
         self.localized_last = 0.0
+        self.global_localization_fix_cnt = 0
         self.cnt_measure = 0
         self.status = Status()
         self.entropy = 0.0
@@ -168,6 +217,7 @@ class MCL3DL:
         self._accum_origins: list = []
         self._accum_odom: list = []
         self._accum_stamps: list = []
+        self._last_scan_base: Optional[np.ndarray] = None
         self._n_active_host = p.num_particles
         self.last_aux: Optional[dict] = None     # host copy of the last step's aux
         self._resample_sigma = torch.tensor(
@@ -183,20 +233,45 @@ class MCL3DL:
     def _normals(self, n: int, d: int) -> torch.Tensor:
         return torch.randn((n, d), generator=self._gen, device=self.device)
 
-    def draw_step(self, like_keep, beam_keep) -> StepDraws:
-        """This step's draws from the engine's generator."""
+    def draw_step(self, like_keep, beam_keep, like_slots=None,
+                  beam_slots=None) -> StepDraws:
+        """This step's draws from the engine's generator; the sample sizes
+        default to the full budgets."""
         p = self.params
         cap = self.pstate.capacity
         return StepDraws(
-            like_idx=draw_uniform_indices(like_keep, p.likelihood.num_points,
-                                          self._gen),
-            beam_idx=draw_uniform_indices(beam_keep, p.beam.num_points,
-                                          self._gen),
+            like_idx=draw_uniform_indices(
+                like_keep, like_slots or p.likelihood.num_points, self._gen),
+            beam_idx=draw_uniform_indices(
+                beam_keep, beam_slots or p.beam.num_points, self._gen),
             u0=torch.rand((), generator=self._gen, device=self.device),
             resample_normals=self._normals(cap, 6),
             noise_normals=self._normals(cap, 4),
             expand_normals=self._normals(cap, 6),
         )
+
+    # -------------------------------------------------------------- capacity
+
+    def _grow_capacity(self, n: int) -> None:
+        """Grow the particle tensors to a bucket >= n; the new slots are
+        inactive (identity ``rot``, ``prob_bias`` 1, zeros elsewhere)."""
+        s = self.pstate
+        new_cap = _bucket(n, self._base_capacity)
+        if new_cap <= s.capacity:
+            return
+        pad = st.zeros(new_cap - s.capacity, device=self.device)
+        self.pstate = ParticleState(
+            *(torch.cat([a, b]) for a, b in zip(s[:-1], pad[:-1])),
+            n_active=s.n_active)
+
+    def _maybe_shrink_capacity(self, n: int) -> None:
+        """Cut the tensors back to the bucket of ``n`` active particles
+        once the count has decayed."""
+        target = _bucket(n, self._base_capacity)
+        s = self.pstate
+        if s.capacity > target:
+            self.pstate = ParticleState(*(a[:target] for a in s[:-1]),
+                                        n_active=s.n_active)
 
     # ---------------------------------------------------------------- map I/O
 
@@ -222,6 +297,9 @@ class MCL3DL:
             np.asarray(pos, np.float32), np.asarray(rpy, np.float32), cov66)
         self.pstate = reset_error_integrals(self.pstate)
         self._n_active_host = self.params.num_particles
+        # state_prev_ stays: the next measurement sees the re-seed as a
+        # pose jump and resets the TF smoothers (:155-198)
+        self._maybe_shrink_capacity(self._n_active_host)
 
     # ------------------------------------------------------------ odom / imu
 
@@ -364,11 +442,10 @@ class MCL3DL:
         if self.cnt_measure % max(int(self.params.skip_measure), 1) != 0:
             return None
         p = self.params
-        if self._n_active_host > p.num_particles:
-            raise NotImplementedError("global mode: later slice")
         ts = time.monotonic()
         dev = self.device
-        _, cloud = self.prepare_cloud(pts_base, labels, origins_base)
+        self._last_scan_base, cloud = self.prepare_cloud(pts_base, labels,
+                                                         origins_base)
 
         op = odom[0] if odom is not None else self.odom_pos
         orot = odom[1] if odom is not None else self.odom_rot
@@ -387,15 +464,21 @@ class MCL3DL:
         def put(a):
             return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
 
+        # graph selection (setGlobalLocalizationStatus on the host): above
+        # num_particles a global-mode step runs, its likelihood slots
+        # bucketed along the reference's ramp and the beam dropped
+        global_mode = self._n_active_host > p.num_particles
         (self.pstate, self.f_pos, self.f_ang, self.state_prev_pos,
          self.state_prev_rot, aux) = self._measurement_step(
             self.pstate, self.map.df, self.map.df_beam, *cloud,
             put(op), put(orot),
             self.state_prev_pos, self.state_prev_rot, self.f_pos, self.f_ang,
-            False,
-            (p.std_warn_thresh_xy, p.std_warn_thresh_z, p.std_warn_thresh_yaw))
-        aux = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
-               for k, v in aux.items()}
+            self.global_localization_fix_cnt > 0,
+            (p.std_warn_thresh_xy, p.std_warn_thresh_z, p.std_warn_thresh_yaw),
+            global_mode=global_mode,
+            global_slots=(global_slots(p, self._n_active_host)
+                          if global_mode else None))
+        aux = to_host(aux)
         self.last_aux = aux
 
         if p.debug_finite_checks:
@@ -415,13 +498,22 @@ class MCL3DL:
         self.localize_rate, tol = mf.filter_step(self.localize_rate, dt)
         self.tf_tolerance_base = float(tol)
         self.localized_last = t
+        n_active = int(aux["n_active"])
+        if aux["did_resize"]:
+            # wait 99.7% fix: three sigma (src/mcl_3dl.cpp:886-887)
+            self.global_localization_fix_cnt = 1 + int(math.ceil(p.lpf_step)) * 3
+            self._maybe_shrink_capacity(n_active)
+        if self.global_localization_fix_cnt:
+            self.global_localization_fix_cnt -= 1
+            self.status.status = FilterStatus.GLOBAL_LOCALIZATION
         if aux["large_std"]:
             self.status.convergence_status = ConvergenceStatus.LARGE_STD_VALUE
         elif aux["converged"]:
             self.status.convergence_status = ConvergenceStatus.CONVERGED
         self.entropy = float(aux["entropy"])
         self.status.match_ratio = float(aux["match_ratio_max"])
-        self.status.particle_size = self._n_active_host
+        self.status.particle_size = n_active
+        self._n_active_host = n_active
         self.status.entropy = self.entropy
         return MeasureResult(
             stamp=t, pos=aux["pub_pos"], rot=aux["pub_rot"], cov=aux["cov"],
@@ -433,44 +525,81 @@ class MCL3DL:
             entropy=self.entropy, jumped=bool(aux["jumped"]),
             expanded=bool(aux["expanded"]), converged=bool(aux["converged"]),
             large_std=bool(aux["large_std"]),
-            particle_size=self._n_active_host, status=self.status,
+            particle_size=n_active, status=self.status,
             elapsed=time.monotonic() - ts)
 
-    def sample_points(self, cloud, cloud_label, cloud_valid,
-                      draws: Optional[StepDraws] = None):
-        """Clip and sample (likelihood .cpp:79-103 / beam :98-122):
-        ``(like_pts, like_valid, beam_pts, beam_labels, beam_valid,
-        points_not_found, draws)``."""
+    def slots(self, global_mode: bool = False, global_slots=None):
+        """``(like_slots, beam_slots, use_beam)`` of a step: the full
+        budgets, or in global mode ``global_slots`` (default the floor
+        ``num_points_global``) and the beam's global budget, which drops
+        the beam model when it is 0 (one slot keeps the shapes)."""
         p = self.params
         lp, bp = p.likelihood, p.beam
+        if not global_mode:
+            return lp.num_points, bp.num_points, p.use_beam_model
+        beam_slots = bp.num_points_global
+        return (global_slots or lp.num_points_global, max(beam_slots, 1),
+                p.use_beam_model and beam_slots > 0)
+
+    def sample_points(self, cloud, cloud_label, cloud_valid,
+                      draws: Optional[StepDraws] = None, *,
+                      global_mode: bool = False, global_slots=None,
+                      n_active=None):
+        """Clip and sample (likelihood .cpp:79-103 / beam :98-122):
+        ``(like_pts, like_valid, beam_pts, beam_labels, beam_valid,
+        points_not_found, draws)``.  In global mode the valid slots follow
+        the reference's point ramp at ``n_active`` (a device scalar),
+        clipped to the slot bucket."""
+        p = self.params
+        lp, bp = p.likelihood, p.beam
+        like_slots, beam_slots, use_beam = self.slots(global_mode,
+                                                      global_slots)
         like_keep = cloud_valid & clip_mask(
             cloud, lp.clip_near, lp.clip_far, lp.clip_z_min, lp.clip_z_max)
         beam_keep = cloud_valid & clip_mask(
             cloud, bp.clip_near, bp.clip_far, bp.clip_z_min, bp.clip_z_max)
         if draws is None:
-            draws = self.draw_step(like_keep, beam_keep)
+            draws = self.draw_step(like_keep, beam_keep, like_slots,
+                                   beam_slots)
         like_pts, like_valid, _ = sample_uniform(cloud, like_keep, draws.like_idx)
         beam_pts, beam_valid, beam_idx = sample_uniform(cloud, beam_keep,
                                                         draws.beam_idx)
-        if not p.use_beam_model:
+        if global_mode:
+            # the point-count shrink (setGlobalLocalizationStatus,
+            # lidar_measurement_model_likelihood.cpp:63-77) from the full
+            # budgets, clipped to the slots
+            def active_points(default, global_min, slots):
+                num = default * p.num_particles // torch.clamp(n_active, min=1)
+                num = torch.clamp(num, min=global_min)
+                num = torch.where(n_active <= p.num_particles, default, num)
+                return torch.arange(slots, device=cloud.device) < torch.clamp(
+                    num, max=slots)
+
+            like_valid = like_valid & active_points(
+                lp.num_points, lp.num_points_global, like_slots)
+            beam_valid = beam_valid & active_points(
+                bp.num_points, bp.num_points_global, beam_slots)
+        if not use_beam:
             beam_valid = torch.zeros_like(beam_valid)
         return (like_pts, like_valid, beam_pts, cloud_label[beam_idx],
                 beam_valid, torch.sum(like_keep) == 0, draws)
 
     def group(self, pos, rot, mask, df, df_beam, like_pts, like_valid,
-              beam_pts, beam_labels, beam_valid, origins):
+              beam_pts, beam_labels, beam_valid, origins, use_beam=None):
         """The pose-grouped sort both models share (df and df_beam live on
         one grid): ``(rmat, grouped_like, grouped_beam)`` with
         ``grouped_like = (stats, layout, lo, fits)`` and ``grouped_beam =
         (stats, layout, lo, fits, vp)``, or ``None`` where a model is not
         eligible.  Each model keeps its own boxes and ``fits`` flag; both
         flags come to the host in one transfer, and the layout is built
-        only if one of them fits."""
+        only if one of them fits.  ``use_beam`` overrides
+        ``params.use_beam_model`` (global mode drops the beam)."""
         p = self.params
+        use_beam = p.use_beam_model if use_beam is None else use_beam
         n_cap = pos.shape[0]
         rmat = mq.rotation_matrix(mq.normalize(rot))
         steps_g = beam_num_steps(p)
-        use_grouped_beam = (p.use_beam_model and n_cap % og.TILE == 0
+        use_grouped_beam = (use_beam and n_cap % og.TILE == 0
                             and steps_g + 1 <= 64)
         share_like = n_cap % og.TILE == 0
         if not (share_like or use_grouped_beam):
@@ -496,22 +625,23 @@ class MCL3DL:
 
     def _measure_models(self, pos, rot, mask, df, df_beam, like_pts,
                         like_valid, beam_pts, beam_labels, beam_valid,
-                        origins):
+                        origins, use_beam=None):
         """Per-particle measurement likelihoods (measure_func,
         src/mcl_3dl.cpp:402-425): ``(lik_l, qual_l, lik_b, tier_like,
-        tier_beam)``."""
+        tier_beam)``; ``use_beam`` overrides ``params.use_beam_model``."""
         p = self.params
         lp, bp = p.likelihood, p.beam
+        use_beam = p.use_beam_model if use_beam is None else use_beam
         rmat, grouped_like, grouped_beam = self.group(
             pos, rot, mask, df, df_beam, like_pts, like_valid, beam_pts,
-            beam_labels, beam_valid, origins)
+            beam_labels, beam_valid, origins, use_beam)
 
         lik_l, qual_l, tier_like = likelihood_measure(
             df, pos, rot, like_pts, like_valid, lp.match_dist_min,
             lp.match_dist_flat, lp.match_weight, active=mask, rmat=rmat,
             grouped=grouped_like)
 
-        if not p.use_beam_model:
+        if not use_beam:
             return lik_l, qual_l, torch.ones_like(lik_l), tier_like, -1
         kw = dict(map_grid_min=p.map_grid_min, map_grid_max=p.map_grid_max,
                   hit_range=bp.hit_range, beam_likelihood_min=bp.beam_likelihood,
@@ -537,20 +667,32 @@ class MCL3DL:
                           cloud_label, cloud_valid, origins, odom_pos,
                           odom_rot, prev_pos, prev_rot, f_pos, f_ang,
                           is_global_fix: bool, std_warn_thresh,
-                          draws: Optional[StepDraws] = None):
-        """The measurement update (src/mcl_3dl.cpp:363-893) in non-global
-        mode.  Returns ``(state, f_pos, f_ang, prev_pos, prev_rot, aux)``;
-        ``draws`` defaults to the engine generator's."""
+                          draws: Optional[StepDraws] = None, *,
+                          global_mode: bool = False, global_slots=None):
+        """The measurement update (src/mcl_3dl.cpp:363-893).  Returns
+        ``(state, f_pos, f_ang, prev_pos, prev_rot, aux)``; ``draws``
+        defaults to the engine generator's.
+
+        ``global_mode`` (chosen on the host from the particle count) samples
+        ``global_slots`` likelihood points (default ``num_points_global``)
+        masked by the point ramp, drops the beam model while its global
+        budget is 0, and decays the particle count 0.75x through
+        ``pf.resize``.  A non-global step is only run with ``n_active <=
+        num_particles`` (the host mirror is refreshed from the device every
+        step), so it does not build the decay and its ``did_resize`` reads
+        False."""
         p = self.params
         mask = state.active_mask()
         (like_pts, like_valid, beam_pts, beam_labels, beam_valid,
          points_not_found, draws) = self.sample_points(
-            cloud, cloud_label, cloud_valid, draws)
+            cloud, cloud_label, cloud_valid, draws, global_mode=global_mode,
+            global_slots=global_slots, n_active=state.n_active)
+        use_beam = self.slots(global_mode, global_slots)[2]
 
         # --- per-particle likelihoods (measure_func, src/mcl_3dl.cpp:402-425)
         lik_l, qual_l, lik_b, tier_like, tier_beam = self._measure_models(
             state.pos, state.rot, mask, df, df_beam, like_pts, like_valid,
-            beam_pts, beam_labels, beam_valid, origins)
+            beam_pts, beam_labels, beam_valid, origins, use_beam)
         odom_error = normal_likelihood(
             torch.linalg.vector_norm(state.odom_err_lin, dim=-1),
             p.odom_err_integ_lin_sigma)
@@ -564,7 +706,8 @@ class MCL3DL:
         ang_diff = mq.angle(mq.mul(state2.rot, mq.inv(prev_rot)))
         p_bias = (normal_likelihood(lin_diff, p.bias_var_dist)
                   * normal_likelihood(ang_diff, p.bias_var_ang) + 1e-6)
-        state2 = pf.bias(state2, p_bias)
+        in_global = state2.n_active > p.num_particles
+        state2 = pf.bias(state2, torch.where(in_global, 1.0, p_bias))
         e_pos, e_rot = pf.expectation_biased(state2)
         e_rot = mq.normalize(e_rot)
         e_max = pf.max_particle(state2)
@@ -574,13 +717,16 @@ class MCL3DL:
         map_pos = e_pos - mq.rotate(map_rot, odom_pos)
         jump_dist = torch.linalg.vector_norm(e_pos - prev_pos)
         jump_ang = mq.angle(mq.mul(mq.inv(e_rot), prev_rot))
-        jumped = (jump_dist > p.jump_dist) | (torch.abs(jump_ang) > p.jump_ang)
+        jumped = ~in_global & ((jump_dist > p.jump_dist)
+                               | (torch.abs(jump_ang) > p.jump_ang))
         state2 = st.where(jumped, reset_error_integrals(state2), state2)
+        jump = in_global | jumped
 
-        # --- TF output smoothing (src/mcl_3dl.cpp:662-684)
+        # --- TF output smoothing (src/mcl_3dl.cpp:662-684); global mode
+        # resets the smoothers every step
         rpy = mq.to_rpy(map_rot)
-        f_ang2 = mf.where(jumped, mf.filter_set(f_ang, rpy), f_ang)
-        f_pos2 = mf.where(jumped, mf.filter_set(f_pos, map_pos), f_pos)
+        f_ang2 = mf.where(jump, mf.filter_set(f_ang, rpy), f_ang)
+        f_pos2 = mf.where(jump, mf.filter_set(f_pos, map_pos), f_pos)
         f_ang2, rpy_s = mf.filter_step(f_ang2, rpy)
         f_pos2, map_pos_s = mf.filter_step(f_pos2, map_pos)
         map_rot_s = mq.from_rpy(rpy_s)
@@ -613,6 +759,13 @@ class MCL3DL:
             state3, draws.expand_normals,
             self._expansion_sigma.to(state.device)), state3)
 
+        # --- global-localization decay (src/mcl_3dl.cpp:875-888)
+        did_resize = state4.n_active > p.num_particles
+        if global_mode:
+            reduced = (state.n_active.to(torch.float32) * 0.75).to(torch.int32)
+            new_n = torch.clamp(reduced, min=p.num_particles)
+            state4 = st.where(did_resize, pf.resize(state4, new_n), state4)
+
         # all-filtered-out guard: leave the filter untouched (:385-391)
         final_state = st.where(points_not_found, state, state4)
         aux = {
@@ -622,9 +775,10 @@ class MCL3DL:
             "cov": cov, "entropy": entropy,
             "match_ratio_min": match_ratio_min,
             "match_ratio_max": match_ratio_max,
-            "jumped": jumped, "expanded": expanded,
+            "jumped": jump, "expanded": expanded,
             "large_std": large_std, "converged": converged,
-            "did_resize": False,
+            "did_resize": did_resize, "n_active": final_state.n_active,
+            "like_slots": like_pts.shape[0],
             "points_not_found": points_not_found,
             "tier_like": tier_like, "tier_beam": tier_beam,
             "e_max_odom_err_lin": e_max["odom_err_lin"],
@@ -636,3 +790,168 @@ class MCL3DL:
                 torch.where(points_not_found, prev_pos, e_pos),
                 torch.where(points_not_found, prev_rot, e_rot),
                 aux)
+
+    # --------------------------------------------------------------- services
+
+    def resize_particles(self, n: int) -> None:
+        """resize_mcl_particle service (src/mcl_3dl.cpp:1019-1025)."""
+        self._grow_capacity(n)
+        self.pstate = pf.resize(self.pstate, n)
+        self._n_active_host = n
+        self._maybe_shrink_capacity(n)
+
+    def expansion_reset(self) -> None:
+        """expansion_resetting service (src/mcl_3dl.cpp:1026-1038)."""
+        self.pstate = pf.add_noise(
+            self.pstate, self._normals(self.pstate.capacity, 6),
+            self._expansion_sigma)
+
+    def _standable_points(self) -> np.ndarray:
+        """The map voxelized at the global-localization grid, keeping the
+        points a robot could stand on (src/mcl_3dl.cpp:1050-1074)."""
+        p = self.params
+        grid = p.global_localization_grid_lin
+        points = voxel_downsample(self.map.points, grid)
+        return points[standable_mask(points, grid, p.dist_weight)]
+
+    def _seed(self, n: int, pos, yaw, prob) -> int:
+        """Replace the particle set with ``n`` seeds: ``pos`` [cap, 3],
+        ``yaw`` [cap] (float64, composed with the IMU attitude) and
+        ``prob`` [cap] on the host, capacity already grown."""
+        f = dict(dtype=torch.float32, device=self.device)
+        cap = self.pstate.capacity
+        zero = np.zeros(cap)
+        rpy = torch.as_tensor(np.stack([zero, zero, yaw], axis=-1), **f)
+        rot = mq.normalize(mq.mul(mq.from_rpy(rpy),
+                                  torch.as_tensor(self.imu_quat, **f)))
+        self.pstate = st.zeros(cap, n, self.device)._replace(
+            pos=torch.as_tensor(pos, **f), rot=rot,
+            prob=torch.as_tensor(prob, **f))
+        self._n_active_host = n
+        return n
+
+    def global_localization(self) -> int:
+        """global_localization service (src/mcl_3dl.cpp:1039-1099): one
+        particle per (standable surface point, yaw bin), the yaw composed
+        with the IMU attitude; returns the new particle count."""
+        if not self.has_map:
+            raise RuntimeError("No map received.")
+        points = self._standable_points()
+        if points.shape[0] == 0:
+            return self._n_active_host
+        dyaw = self.params.global_localization_div_yaw
+        n = points.shape[0] * dyaw
+        self._grow_capacity(n)
+        idx = np.arange(self.pstate.capacity, dtype=np.int64)
+        pt_idx = np.minimum(idx // dyaw, points.shape[0] - 1)
+        yaw = (2.0 * np.pi * (idx % dyaw) / dyaw).astype(np.float32)
+        # reference quirk: 1/points, not 1/n
+        prob = np.where(idx < n, np.float32(1.0 / float(points.shape[0])),
+                        np.float32(0.0))
+        return self._seed(n, points[pt_idx], yaw, prob)
+
+    def global_localization_correlative(
+            self, num_seeds: int = 1024, yaw_bins: Optional[int] = None,
+            scan_points_base: Optional[np.ndarray] = None,
+            yaw_prior: Optional[tuple] = None,
+            seed_z: Optional[float] = None) -> int:
+        """One-shot dense global localization (the JAX package's addition):
+        every (x, y) map cell x yaw bin scored against the latest scan by
+        FFT cross-correlation of the planar likelihood field
+        (``map/correlative.py``), the top ``num_seeds`` candidates seeded
+        with score weights, z from the nearest standable surface point
+        and the yaw composed with the IMU attitude.
+
+        ``yaw_prior=(center, tol)`` keeps the yaw bins within ``tol`` of
+        ``center`` (a kidnap cannot corrupt the attitude); ``seed_z``
+        pins the seeded height.  Returns the new particle count."""
+        if not self.has_map:
+            raise RuntimeError("No map received.")
+        if scan_points_base is None:
+            scan_points_base = self._last_scan_base
+        if scan_points_base is None or len(scan_points_base) == 0:
+            raise RuntimeError("No scan available for correlation.")
+        p = self.params
+        lp = p.likelihood
+        scan = np.asarray(scan_points_base, np.float32)
+        keep = clip_mask(torch.as_tensor(scan), lp.clip_near, lp.clip_far,
+                         lp.clip_z_min, lp.clip_z_max).numpy()
+        scan = scan[keep]
+        if len(scan) == 0:
+            raise RuntimeError("All scan points clipped.")
+
+        df = self.map.df
+        # padding covers the scan footprint, so the circular correlation
+        # never wraps a real peak
+        pad = int(np.ceil(lp.clip_far / df.cell)) + 2
+        field2d = mc.build_planar_field(
+            df, lp.match_dist_min, lp.match_dist_flat, lp.match_weight,
+            z_lo=-np.inf, z_hi=np.inf, pad_cells=pad)
+        w = np.asarray(df.weights)
+        scan_xyw = torch.as_tensor((scan[:, :2] * w[None, :2]).astype(np.float32),
+                                   device=self.device)
+        nbins = yaw_bins or max(p.global_localization_div_yaw, 36)
+        yaws_np = (2.0 * np.pi * np.arange(nbins) / nbins).astype(np.float32)
+        yaws = torch.as_tensor(yaws_np, device=self.device)
+        scores = mc.correlate_scan(field2d, scan_xyw, yaws)
+        if yaw_prior is not None:
+            # the seeded map yaw is the bin's yaw, so the bins are held
+            # against the prior's center directly
+            center, tol = yaw_prior
+            dy = np.arctan2(np.sin(yaws_np - center), np.cos(yaws_np - center))
+            bin_ok = torch.as_tensor(np.abs(dy) <= tol, device=self.device)
+            scores = torch.where(bin_ok[:, None, None], scores, -torch.inf)
+        xs, ys, yaw_is, vals = (a.cpu().numpy() for a in
+                                mc.top_candidates(scores, field2d, num_seeds))
+        good = np.isfinite(vals) & (vals > 0)
+        xs, ys, yaw_is, vals = xs[good], ys[good], yaw_is[good], vals[good]
+        if len(xs) == 0:
+            return self._n_active_host
+
+        cand_xy = np.stack([xs / w[0], ys / w[1]], axis=1)
+        if seed_z is not None:
+            zs = np.full(len(cand_xy), float(seed_z), np.float32)
+        else:
+            surf = self._standable_points()
+            if len(surf) == 0:
+                surf = self.map.points
+            d2 = ((surf[None, :, 0] - cand_xy[:, None, 0]) ** 2
+                  + (surf[None, :, 1] - cand_xy[:, None, 1]) ** 2)
+            zs = surf[np.argmin(d2, axis=1), 2]
+        return self._seed_correlative(cand_xy, zs, yaw_is, vals, nbins)
+
+    def _seed_correlative(self, cand_xy, zs, yaw_is, vals, nbins) -> int:
+        """Replace the particle set with score-weighted candidates (the
+        tail of ``global_localization_correlative``)."""
+        n = len(cand_xy)
+        self._grow_capacity(n)
+        idx = np.arange(self.pstate.capacity)
+        sel = np.minimum(idx, n - 1)
+        pos = np.stack([cand_xy[sel, 0], cand_xy[sel, 1], zs[sel]], axis=1)
+        # the candidates carry the absolute map yaw: take the IMU yaw out
+        # before composing with the IMU attitude
+        imu_yaw = float(mqn.to_rpy(np.asarray(self.imu_quat, np.float64))[2])
+        yaw = 2.0 * np.pi * np.asarray(yaw_is)[sel] / nbins - imu_yaw
+        # weights from the relative correlation score, sharpened so the
+        # budget concentrates on the top candidates
+        rel = np.asarray(vals)[sel] / max(float(np.max(vals)), 1e-12)
+        prob = np.where(idx < n, np.exp(-60.0 * (1.0 - rel)), 0.0)
+        prob = prob / max(prob[:n].sum(), 1e-12)
+        return self._seed(n, pos, yaw, prob)
+
+
+def standable_mask(points: np.ndarray, grid: float, dist_weight) -> np.ndarray:
+    """Points with no neighbour within weighted ``grid`` of p + (0, 0,
+    0.01 + grid): the pc_filter of src/mcl_3dl.cpp:1062-1074 with the
+    node's anisotropic point representation, as an exact radius query on
+    a kd-tree."""
+    from scipy.spatial import cKDTree
+
+    points = np.asarray(points, np.float64).reshape(-1, 3)
+    if points.shape[0] == 0:
+        return np.zeros((0,), bool)
+    w = np.asarray(dist_weight, np.float64)
+    probe = (points + np.array([0.0, 0.0, 0.01 + grid])) * w
+    tree = cKDTree(points * w, balanced_tree=False, compact_nodes=False)
+    d, _ = tree.query(probe, k=1, distance_upper_bound=grid, workers=-1)
+    return ~np.isfinite(d)

@@ -4,7 +4,7 @@ Port of the JAX package's ``pf.py`` (``pf::ParticleFilter``,
 include/mcl_3dl/pf.h:160-462).  Inactive slots (index >= n_active) are
 masked, never removed.  Random draws are inputs: ``resample`` takes the
 comb offset ``u0`` in [0, 1) and the jitter normals ``[cap, 6]``,
-``add_noise`` its normals ``[cap, 6]``.
+``add_noise`` its normals ``[cap, 6]``.  ``resize`` draws nothing.
 """
 
 from __future__ import annotations
@@ -114,6 +114,26 @@ def max_particle(state: ParticleState) -> dict:
             "odom_err_lin": state.odom_err_lin[idx],
             "odom_err_ang": state.odom_err_ang[idx],
             "noise": state.noise[idx]}
+
+
+def resize(state: ParticleState, new_n) -> ParticleState:
+    """Re-draw ``new_n`` particles from the weight CDF (pf.h:399-436): a
+    deterministic comb at ``pstep * (i + 1)``, no jitter, uniform output
+    weights and bias weights 1.  ``new_n`` (an int or a device int32
+    scalar) must not exceed the capacity; the engine grows it first."""
+    cap = state.capacity
+    mask = state.active_mask()
+    new_n = torch.as_tensor(new_n, dtype=torch.int32, device=state.device)
+    nf = new_n.to(torch.float32)
+    total = torch.sum(state.prob * mask)
+    pstep = total / nf
+    idx = _systematic_select(state.prob, mask, state.n_active, cap, pstep,
+                             pstep)
+    out = _gather_states(state, idx)
+    new_mask = torch.arange(cap, dtype=torch.int32, device=state.device) < new_n
+    return out._replace(prob=new_mask / nf,
+                        prob_bias=torch.ones_like(state.prob_bias),
+                        n_active=new_n)
 
 
 def covariance(state: ParticleState):

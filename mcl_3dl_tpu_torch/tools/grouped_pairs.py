@@ -39,7 +39,8 @@ import torch
 
 from mcl_3dl_tpu_torch import MCL3DL, Params, worlds
 from mcl_3dl_tpu_torch.models.beam import grouped_beam_inputs
-from mcl_3dl_tpu_torch.models.likelihood import grouped_like_inputs
+from mcl_3dl_tpu_torch.models.likelihood import (box_queries, box_tables,
+                                                 grouped_like_inputs)
 from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.tools import bound, card, time_ms
@@ -107,11 +108,8 @@ def kernel_inputs(eng, scan):
     assert g_like[3] and g_beam[3], "kernel inputs need fitting boxes"
     stats, layout, lo_l, _ = g_like
     _, _, lo_b, _, vp = g_beam
-    like = grouped_like_inputs(df, stats, lo_l, like_pts, like_valid,
-                               lp.match_dist_min)
-    like_kw = dict(match_dist_min=lp.match_dist_min,
-                   match_dist_flat=lp.match_dist_flat,
-                   match_weight=lp.match_weight, trunc=float(df.trunc))
+    like, like_kw, like_bound, kept = like_case(df, lp, stats, layout, lo_l,
+                                                like_pts, like_valid)
     beam = grouped_beam_inputs(df_beam, stats, lo_b, vp, beam_valid,
                                p.map_grid_max)
     beam_kw = dict(nprobe=vp.nprobe, trunc=float(df_beam.trunc),
@@ -121,41 +119,70 @@ def kernel_inputs(eng, scan):
                    sin_total_ref=float(np.sin(bp.ang_total_ref)),
                    long_pen=not bp.add_penalty_short_only_mode,
                    tol=bp.hit_range)
+    nt, coef, live = _bound_parts(layout)
+    bmeta, bpfp, baux, bskip, _ = beam
+    b_tab, b_look = live(bskip)
+    beam_bytes = (coef + (bmeta.numel() + bpfp.numel() + baux.numel()
+                          + bskip.numel()) * 4 + b_tab * og.R_ROWS * og.ZW
+                  + nt * og.TILE * 4)
+    return types.SimpleNamespace(
+        like=like, like_kw=like_kw,
+        beam=(layout.A, layout.tile_group, *beam), beam_kw=beam_kw,
+        like_bound=like_bound, beam_bound=(beam_bytes, b_look * 30),
+        kept=kept,
+        stats=stats, layout=layout, lo_l=lo_l, lo_b=lo_b, vp=vp,
+        cloud=cloud_t, rmat=rmat, group_args=group_args,
+        like_pts=like_pts, like_valid=like_valid, beam_pts=beam_pts,
+        beam_labels=beam_labels, beam_valid=beam_valid)
 
-    # bounds: each input read once, each output written once; lookups of
-    # the live (point, bin) pairs of bins that have tiles
+
+def _bound_parts(layout):
+    """``(tiles, bytes of the tile inputs, live)`` of a layout for the
+    kernels' bounds: each input read once, each output written once;
+    ``live(skip)`` counts the tables and lookups of the live (point, bin)
+    pairs of bins that have tiles."""
     nt = layout.A.shape[0]
     tiles_per_bin = torch.bincount(layout.tile_group.long(),
                                    minlength=og.G_GROUPS)
-    table = og.R_ROWS * og.ZW
-    coef = nt * 12 * og.TILE * 4 + nt * 4
 
     def live(skip):
         m = (skip != og.SKIP_ALL) & (tiles_per_bin > 0)[None, :]
         return (int(m.sum()),
                 int((m.long() * tiles_per_bin[None, :]).sum()) * og.TILE)
 
+    return nt, nt * 12 * og.TILE * 4 + nt * 4, live
+
+
+def like_case(df, lp, stats, layout, lo, points, valid):
+    """K1 at a grouped state: ``(args, kw, (bytes, ops), kept)``, ``kept``
+    the slots of in-envelope particles (the overflow bin's slots are
+    rescored exactly by the caller, and there the kernel's skips, which
+    the plain version does not take, are not no-ops)."""
+    like = grouped_like_inputs(df, stats, lo, points, valid,
+                               lp.match_dist_min)
+    kw = dict(match_dist_min=lp.match_dist_min,
+              match_dist_flat=lp.match_dist_flat,
+              match_weight=lp.match_weight, trunc=float(df.trunc))
+    nt, coef, live = _bound_parts(layout)
     meta, pfp, skipw, _ = like
     n_tab, n_look = live(skipw)
-    like_bytes = (coef + (meta.numel() + pfp.numel() + skipw.numel()) * 4
-                  + n_tab * table + 2 * nt * og.TILE * 4)
-    bmeta, bpfp, baux, bskip, _ = beam
-    b_tab, b_look = live(bskip)
-    beam_bytes = (coef + (bmeta.numel() + bpfp.numel() + baux.numel()
-                          + bskip.numel()) * 4 + b_tab * table
-                  + nt * og.TILE * 4)
-    return types.SimpleNamespace(
-        like=(layout.A, layout.tile_group, *like), like_kw=like_kw,
-        beam=(layout.A, layout.tile_group, *beam), beam_kw=beam_kw,
-        like_bound=(like_bytes, n_look * 25), beam_bound=(beam_bytes, b_look * 30),
-        # slots of in-envelope particles: the overflow bin's slots are
-        # rescored exactly by the caller, and there the kernels' skips
-        # (which the plain versions do not take) are not no-ops
-        kept=layout.dest[stats.g != og.G_GROUPS - 1],
-        stats=stats, layout=layout, lo_l=lo_l, lo_b=lo_b, vp=vp,
-        cloud=cloud_t, rmat=rmat, group_args=group_args,
-        like_pts=like_pts, like_valid=like_valid, beam_pts=beam_pts,
-        beam_labels=beam_labels, beam_valid=beam_valid)
+    nbytes = (coef + (meta.numel() + pfp.numel() + skipw.numel()) * 4
+              + n_tab * og.R_ROWS * og.ZW + 2 * nt * og.TILE * 4)
+    return ((layout.A, layout.tile_group, *like), kw, (nbytes, n_look * 25),
+            layout.dest[stats.g != og.G_GROUPS - 1])
+
+
+def local_case(df, lp, pos, rmat, points, valid):
+    """K3 at a state: its box tables and queries, ``(args, kw, (bytes,
+    ops), kept)`` with every slot kept."""
+    iq, lo, _ = box_queries(df, pos, rmat, points)
+    tables, lidx = box_tables(df, iq, lo, valid)
+    kw = dict(match_dist_min=lp.match_dist_min,
+              match_dist_flat=lp.match_dist_flat, match_weight=lp.match_weight)
+    n = lidx.shape[1]
+    nbytes = tables.numel() * 4 + lidx.numel() * 4 + 2 * n * 4
+    return ((tables, lidx), kw, (nbytes, lidx.numel() * 8),
+            torch.arange(n, device=lidx.device))
 
 
 def load_build(pkg_dir):

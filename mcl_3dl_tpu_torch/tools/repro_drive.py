@@ -2,7 +2,7 @@
 seeded drive on fresh engines, compared bit for bit.
 
     python -m mcl_3dl_tpu_torch.tools.repro_drive [--drives 3] [--ops]
-        [--scan rows|torch]
+        [--scan rows|torch] [--drive main|recovery]
 
 Each drive is ``grouped_pairs.engine()`` and ``grouped_pairs.drive`` from
 ``numpy.random.default_rng(0)``, the drive of ``chip_smoke.py``: 1,048,576
@@ -18,6 +18,12 @@ whose outputs differ: with equal inputs it is the op that is not
 reproducible; with other inputs they were written outside the log (a
 kernel launched through ctypes) or read before they were written.
 Outputs of ``empty`` allocations are not compared.
+
+``--drive recovery`` compares the global-mode drive instead: the three
+episodes of ``tools/recovery.py`` (``global_localization`` from 122,328
+seeds and two ``resize_particles`` decays to 64 particles), per
+measurement the episode, tiers, particle count and a fingerprint of the
+particle poses the step started from.
 
 ``--scan torch`` puts ``torch.cumsum`` back in place of ``math.cumsum``
 in resampling and point sampling (the device-wide scan, whose float sums
@@ -42,6 +48,7 @@ from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.tools import card
 from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
+from mcl_3dl_tpu_torch.tools import recovery
 
 
 def fingerprint(t):
@@ -128,12 +135,34 @@ def record_drive(log_ops=False):
     return steps, (log.records if log is not None else None)
 
 
+def record_recovery(log_ops=False):
+    """One global-recovery drive on a fresh engine: ``(steps, op records or
+    None)``, a step being ``(episode, tier_like, tier_beam, n_active,
+    print of the poses it started from)``."""
+    eng = recovery.engine()
+    log = OpLog() if log_ops else None
+    kw = dict(before_step=lambda e: fingerprint(e.pstate.pos)[2],
+              log=lambda s: None)
+    if log is None:
+        out = recovery.run(eng, np.random.default_rng(0), **kw)
+    else:
+        with log:
+            out = recovery.run(eng, np.random.default_rng(0), **kw)
+    steps = [(name, r["tier_like"], r["tier_beam"], r["n"], r["before"])
+             for name, ep in out.items() for r in ep["rows"]]
+    steps.append(("end", None, None, eng._n_active_host,
+                  fingerprint(eng.pstate.pos)[2]))
+    return steps, (log.records if log is not None else None)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--drives", type=int, default=3)
     ap.add_argument("--ops", action="store_true")
     ap.add_argument("--scan", choices=("rows", "torch"), default="rows")
+    ap.add_argument("--drive", choices=("main", "recovery"), default="main")
     a = ap.parse_args(argv)
+    record = record_drive if a.drive == "main" else record_recovery
     device = resolve_device()
     if a.scan == "torch":
         for mod in (pf, samplers):
@@ -142,19 +171,25 @@ def main(argv=None):
     where = card(device)
     runs = []
     for k in range(a.drives):
-        steps, _ = record_drive()
+        steps, _ = record()
         runs.append(steps)
         for i, s in enumerate(steps):
-            print(f"drive {k} measurement {i}: tiers {s[0]},{s[1]}, overflow "
-                  f"{s[2]} of cap {s[3]}, fits {s[4]}/{s[5]}, raw z {s[6]:.6f},"
-                  f" particles {s[7]:x}, scan {a.scan} [{where}]", flush=True)
+            if a.drive == "main":
+                what = (f"tiers {s[0]},{s[1]}, overflow {s[2]} of cap {s[3]}, "
+                        f"fits {s[4]}/{s[5]}, raw z {s[6]:.6f}, particles "
+                        f"{s[7]:x}")
+            else:
+                what = (f"{s[0]}, tiers {s[1]},{s[2]}, {s[3]} particles, "
+                        f"from particles {s[4]:x}")
+            print(f"drive {k} measurement {i}: {what}, scan {a.scan} "
+                  f"[{where}]", flush=True)
     for k in range(1, a.drives):
         diff = next((i for i, (x, y) in enumerate(zip(runs[0], runs[k]))
-                     if x[7] != y[7]), None)
+                     if x[-1] != y[-1]), None)
         print(f"drive {k} against drive 0, scan {a.scan}: first measurement"
               f" with other particles: {diff} [{where}]", flush=True)
     if a.ops:
-        logs = [record_drive(log_ops=True)[1] for _ in range(2)]
+        logs = [record(log_ops=True)[1] for _ in range(2)]
         diff = first_difference(*logs)
         if diff is None:
             print(f"op logs, scan {a.scan}: {len(logs[0])} ops, equal "

@@ -1,12 +1,23 @@
-"""The flagship room world: an 8 x 8 m room with floor, walls and three
-pillars at non-symmetric positions (so no rotation or reflection of the
-square aliases the pose), and an analytic LIDAR scan of it from the
-origin with the sensor at z = 0.5 m.  Restated from the repository's
-driver entry (``__graft_entry__.py``) so the port does not import it."""
+"""Test worlds.
+
+* The flagship room world: an 8 x 8 m room with floor, walls and three
+  pillars at non-symmetric positions (so no rotation or reflection of the
+  square aliases the pose), and an analytic LIDAR scan of it from the
+  origin with the sensor at z = 0.5 m.  Restated from the repository's
+  driver entry (``__graft_entry__.py``) so the port does not import it.
+* ``make_room`` and ``simulate_scan``: the grid-sampled room and the
+  nearest-point LIDAR simulation of the JAX package's test helpers
+  (``tests/worlds.py``, after the reference's integration tests,
+  test/src/test_global_localization.cpp:50-127), with the float32
+  rotations in torch.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from mcl_3dl_tpu_torch.math import quat as mq
 
 PILLARS = ((2.0, 1.0, 0.35), (-1.6, 2.4, 0.45), (0.6, -2.3, 0.25))
 ROOM = 4.0          # half-extent of the square room
@@ -64,3 +75,57 @@ def scan(rng: np.random.Generator, cloud_points: int) -> np.ndarray:
     cloud = np.concatenate([wall, floor], axis=0).astype(np.float32)
     cloud += rng.normal(0.0, 0.01, cloud.shape).astype(np.float32)
     return cloud
+
+
+def make_room(x0=-5.0, x1=5.0, y0=-5.0, y1=5.0, z0=0.0, z1=2.0, grid=0.1,
+              with_ceiling=False) -> np.ndarray:
+    """Floor and four walls (optionally a ceiling) sampled on a grid."""
+    pts = []
+    xs = np.arange(x0, x1 + grid / 2, grid)
+    ys = np.arange(y0, y1 + grid / 2, grid)
+    zs = np.arange(z0, z1 + grid / 2, grid)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    pts.append(np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, z0)], axis=1))
+    if with_ceiling:
+        pts.append(np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, z1)],
+                            axis=1))
+    gx, gz = np.meshgrid(xs, zs, indexing="ij")
+    for y in (y0, y1):
+        pts.append(np.stack([gx.ravel(), np.full(gx.size, y), gz.ravel()], axis=1))
+    gy, gz = np.meshgrid(ys, zs, indexing="ij")
+    for x in (x0, x1):
+        pts.append(np.stack([np.full(gy.size, x), gy.ravel(), gz.ravel()], axis=1))
+    return np.concatenate(pts, axis=0)
+
+
+def simulate_scan(map_points: np.ndarray, pos: np.ndarray, rot: np.ndarray,
+                  n_rays: int = 256, max_range: float = 10.0,
+                  fov_elev=(-0.3, 0.3), noise: float = 0.0,
+                  seed: int = 0) -> np.ndarray:
+    """A LIDAR scan from the sensor pose: for each of ``n_rays`` random
+    rays, the nearest map point within ~2.5 degrees of it, in the sensor
+    (base) frame."""
+    rng = np.random.default_rng(seed)
+    az = rng.uniform(-np.pi, np.pi, n_rays)
+    el = rng.uniform(fov_elev[0], fov_elev[1], n_rays)
+    dirs = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                     np.sin(el)], axis=1)
+    q = torch.as_tensor(np.asarray(rot, np.float32))
+    dirs_w = mq.rotate(q, torch.as_tensor(dirs.astype(np.float32))).numpy()
+    rel = map_points - np.asarray(pos)[None, :]
+    dist = np.linalg.norm(rel, axis=1)
+    ok = dist < max_range
+    rel, dist_ok = rel[ok], dist[ok]
+    unit = rel / dist_ok[:, None]
+    hits = []
+    for d in dirs_w:
+        cand = unit @ d > 0.999
+        if not cand.any():
+            continue
+        hits.append(rel[np.argmin(np.where(cand, dist_ok, np.inf))])
+    if not hits:
+        return np.zeros((0, 3), np.float32)
+    hits = np.asarray(hits)
+    if noise > 0:
+        hits = hits + rng.normal(0, noise, hits.shape)
+    return mq.rotate(mq.inv(q), torch.as_tensor(hits.astype(np.float32))).numpy()

@@ -69,3 +69,28 @@ def test_engine_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             MCL3DL(Params(num_particles=64))
+
+
+_BLOCKED = r"""
+import importlib
+import sys
+for name in ("jax", "jaxlib", "mcl_3dl_tpu", "__graft_entry__"):
+    sys.modules[name] = None          # any import of them raises
+mod = importlib.import_module(sys.argv[1])
+print("IMPORTED:" + mod.__name__)
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "mcl_3dl_tpu_torch.engine", "mcl_3dl_tpu_torch.worlds",
+    "mcl_3dl_tpu_torch.map.correlative", "mcl_3dl_tpu_torch.io.replay",
+    "mcl_3dl_tpu_torch.tools.tier3", "mcl_3dl_tpu_torch.tools.run_tier3",
+    "mcl_3dl_tpu_torch.tools.recovery",
+])
+def test_module_imports_with_jax_blocked(module):
+    """The global-mode, correlative, replay and Tier-3 modules import with
+    JAX and the JAX package made unimportable."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED, module], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert f"IMPORTED:{module}" in out.stdout.splitlines()

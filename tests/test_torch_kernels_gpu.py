@@ -21,7 +21,8 @@ from mcl_3dl_tpu_torch.math import cumsum
 from mcl_3dl_tpu_torch.math import quat as mq
 from mcl_3dl_tpu_torch.models.beam import (BeamVirtualPoints,
                                            grouped_beam_inputs)
-from mcl_3dl_tpu_torch.models.likelihood import grouped_like_inputs
+from mcl_3dl_tpu_torch.models.likelihood import (box_queries, box_tables,
+                                                 grouped_like_inputs)
 from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops import gather_bench as ogb
@@ -80,6 +81,27 @@ def test_like_kernel_matches_plain(cuda):
     n0 = og.grouped_like_score.launches
     got = og.grouped_like_score(*args, **kw)
     assert og.grouped_like_score.launches == n0 + 1
+    want = og.like_score_plain(*args, **kw)
+    torch.cuda.synchronize()
+    keep = _kept_slots(stats, layout)
+    for a, b in zip(got, want):
+        assert torch.equal(a[keep], b[keep])
+    assert float(got[1][keep].sum()) > 0
+
+
+@pytest.mark.parametrize("slots", [8, 16, 32, 64, 96])
+def test_like_kernel_global_slots_match_plain(cuda, slots):
+    """K1 at the slot buckets of a global-mode step (the point ramp masks
+    the last quarter of the slots) over 16 tiles."""
+    df, scan, stats, layout = _cloud(cuda, 20 + slots, n_tiles=16, K=slots)
+    valid = torch.arange(slots, device=cuda) < slots - slots // 4
+    lo, fits = og.group_boxes(stats, scan, df.shape)
+    assert bool(fits.all())
+    args = (layout.A, layout.tile_group,
+            *grouped_like_inputs(df, stats, lo, scan, valid, MDM))
+    kw = dict(match_dist_min=MDM, match_dist_flat=MDF, match_weight=MW,
+              trunc=df.trunc)
+    got = og.grouped_like_score(*args, **kw)
     want = og.like_score_plain(*args, **kw)
     torch.cuda.synchronize()
     keep = _kept_slots(stats, layout)
@@ -214,6 +236,36 @@ def test_local_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [16, 96])
+def test_local_kernel_box_tables_match_plain(cuda, k):
+    """K3 on the box tables of a 512-slot state (the capacity of a global
+    step below 1024), ``k`` points with the last quarter masked."""
+    rng = np.random.default_rng(k)
+    pts = rng.uniform(-3.0, 3.0, (300, 3))
+    df = build_distance_field(pts, 0.1, 0.6, weights=(1.0, 1.0, 2.0),
+                              device=cuda)
+    n = 512
+    pos = torch.tensor(rng.normal(0, 0.1, (n, 3)), dtype=torch.float32,
+                       device=cuda)
+    rpy = np.stack([rng.normal(0, 0.002, n), rng.normal(0, 0.002, n),
+                    rng.normal(0, 0.05, n)], axis=1)
+    rmat = mq.rotation_matrix(mq.from_rpy(
+        torch.tensor(rpy, dtype=torch.float32, device=cuda)))
+    scan = torch.tensor(rng.uniform(-1.5, 1.5, (k, 3)), dtype=torch.float32,
+                        device=cuda)
+    valid = torch.arange(k, device=cuda) < k - k // 4
+    iq, lo, ext = box_queries(df, pos, rmat, scan)
+    assert bool(torch.all(ext < torch.tensor([32, 32, 16], device=cuda)))
+    tables, lidx = box_tables(df, iq, lo, valid)
+    kw = dict(match_dist_min=MDM, match_dist_flat=MDF, match_weight=MW)
+    got = olg.local_score(tables, lidx, **kw)
+    want = olg.local_score_plain(tables, lidx, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(got[1].sum()) > 0
 
 
 def test_wrapper_refuses_wrong_dtype(cuda):

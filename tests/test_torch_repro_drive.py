@@ -62,3 +62,21 @@ def test_repro_drive_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         rd.main(["--drives", "1"])
+
+
+def test_recovery_drive_prints_match_on_cpu(monkeypatch):
+    """``--drive recovery`` at a small size on the CPU: one episode from
+    12,696 seeds; two drives give one row a measurement each, equal, the
+    count falling to 64."""
+    from mcl_3dl_tpu_torch.tools import recovery
+
+    make = recovery.engine
+    monkeypatch.setattr(recovery, "engine", lambda: make(
+        "cpu", grid_lin=0.3, yaw_bins=12))
+    monkeypatch.setattr(recovery, "EPISODES", (("global", None, None),))
+    a, _ = rd.record_recovery()
+    b, _ = rd.record_recovery()
+    assert a == b
+    assert [s[0] for s in a] == ["global"] * (len(a) - 1) + ["end"]
+    assert a[-1][3] == 64 and a[-2][3] == 64
+    assert len({s[4] for s in a}) == len(a)
