@@ -44,7 +44,27 @@ time):
    each against its plain version as in phase 4;
 8. the Tier-3 gate through the port (``tools/run_tier3.py``: with-imu,
    no-imu and no-odom at 220 steps, the reference's gate math), launch
-   counts zeroed before and read after; a failed gate raises.
+   counts zeroed before and read after; a failed gate raises;
+9. every option at full width (``tools/all_options.py``): 1,048,576
+   particles on the flagship room world with trilinear sampling, the DDA
+   raycast, the normal-weighted sampler, ``output_pcd`` and an
+   ``on_match_clouds`` callback; 10 scans (a checkpoint saved after the
+   fifth and loaded into a fresh engine, which must stay equal bit for
+   bit over the next five), ``landmark`` at the truth, ``update_map``
+   with a small wall, 5 more scans, at tiers 2/2 with no K1-K3 launch
+   (counts zeroed before, read after).  The published pose must end
+   within 0.05 m of the truth in x and y and 0.05 rad in rotation, its
+   z above the truth by less than the DDA beam's bias bound
+   (``all_options.z_bias_bound``: the DDA beam lifts z in this world, in
+   the JAX engine alike); the raw pose of the first scan after the
+   landmark within 0.05 m / 0.05 rad.  The PCD dump must read back, the
+   inspection calls return the JAX engine's shapes.  Then the split of a
+   step: normals on the host, the weighted draws, trilinear sampling,
+   the DDA march;
+10. the trilinear Tier-3 gate (``tools/run_tier3.py --interp
+   trilinear``, the three variants at 220 steps), beside the JAX
+   package's record ``docs/TIER3_GATE_TRILINEAR.json``; launch counts
+   zeroed before and read after; a failed gate raises.
 
 Times are medians of CUDA-event timings (``tools.time_ms``); bounds are
 ``tools.bound``: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
@@ -267,6 +287,152 @@ def gate_phase(card):
               flush=True)
     print(f"phase 8 gate launches {launches} {card}", flush=True)
     assert result["pass"], result
+
+
+def all_options_phase(card):
+    """Phase 9: the all-options drive of ``tools/all_options.py`` at
+    1,048,576 particles with the launch counts zeroed before and read
+    after, its checks, then the split of a step on the final state."""
+    import torch
+    from mcl_3dl_tpu_torch import worlds
+    from mcl_3dl_tpu_torch.engine import dda_num_steps
+    from mcl_3dl_tpu_torch.models.beam import beam_measure
+    from mcl_3dl_tpu_torch.models.likelihood import likelihood_measure
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.ops import local_gather as olg
+    from mcl_3dl_tpu_torch.tools import all_options as ao
+    from mcl_3dl_tpu_torch.tools import time_ms
+
+    kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
+               "local": olg.local_score}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    eng = ao.engine("cuda")
+    times = []
+    out = ao.run(eng, lambda: ao.engine("cuda"), np.random.default_rng(3),
+                 on_step=lambda dt, res: times.append(dt),
+                 log=lambda s: print(f"phase 9 {s} {card}", flush=True),
+                 out_dir="chiprun_out")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    pos_err, rot_err = out["pose_err"]
+    raw_err = out["raw_err_after_landmark"]
+    steady = sorted(times[1:])
+    print(f"phase 9 all options: {ao.NUM_PARTICLES} particles, {len(times)} "
+          f"measurements in {secs:.2f} s, tiers {sorted(set(out['tiers']))}, "
+          f"launches {launches}, published pose err {pos_err:.4f} m (x-y "
+          f"{out['xy_err']:.4f} m, z {out['z']:.4f} m) / {rot_err:.4f} rad "
+          f"(raw z {out['raw_z']:.4f} m), raw pose after the landmark "
+          f"{raw_err[0]:.4f} m / {raw_err[1]:.4f} rad, push_cloud median "
+          f"{statistics.median(steady) * 1e3:.2f} ms, max "
+          f"{steady[-1] * 1e3:.2f} ms over {len(steady)} steps, peak memory "
+          f"{peak / 2**30:.2f} GiB {card}", flush=True)
+    print(f"phase 9 outputs: PCD {out['pcd_points']} points written, "
+          f"{out['pcd_read']} read back; match clouds {out['matches']}; "
+          f"get_particles {out['particles']}; debug_beam_status "
+          f"{out['beam_status']}; {out['diagnostics']} {card}", flush=True)
+    assert set(out["tiers"]) == {(2, 2)}, out["tiers"]
+    assert all(n == 0 for n in launches.values()), launches
+    assert out["xy_err"] < 0.05 and rot_err < 0.05, out["pose_err"]
+    assert abs(out["z"]) < ao.z_bias_bound(eng.params), out["z"]
+    assert raw_err[0] < 0.05 and raw_err[1] < 0.05, raw_err
+    assert out["pcd_points"] == out["pcd_read"] > 0, out
+    n = int(eng.pstate.n_active)
+    assert out["particles"] == (((n, 3), np.float32), ((n, 4), np.float32),
+                                ((n,), np.float32)), out["particles"]
+    assert out["beam_status"][:2] == ((64,), np.int64), out["beam_status"]
+    assert out["matches"] and out["diagnostics"].ok, out
+
+    # the split of a step on the final state
+    p = eng.params
+    lp, bp = p.likelihood, p.beam
+    st = eng.pstate
+    scan = worlds.scan(np.random.default_rng(4), ao.CLOUD_POINTS)
+    pts_ds, cloud = eng.prepare_cloud(scan, np.zeros(len(scan), np.int64),
+                                      ao.ORIGIN[None].astype(np.float32))
+    normals = eng.scan_normals(pts_ds, cloud[0].shape[0])
+    draws = eng.draw_step(cloud[2], cloud[2])
+
+    def sample():
+        return eng.sample_points(*cloud[:3], draws, state=st, normals=normals)
+
+    (like_pts, like_valid, beam_pts, beam_labels, beam_valid, _,
+     _) = sample()
+    kw = dict(map_grid_min=p.map_grid_min, map_grid_max=p.map_grid_max,
+              hit_range=bp.hit_range, beam_likelihood_min=bp.beam_likelihood,
+              num_points_default=bp.num_points,
+              sin_total_ref=float(np.sin(bp.ang_total_ref)),
+              add_penalty_short_only_mode=bp.add_penalty_short_only_mode,
+              num_steps=dda_num_steps(p), use_dda=True, occ=eng.map.occ,
+              filter_label_max=bp.filter_label_max,
+              ray_angle_half=bp.ray_angle_half,
+              min_dist_thr_sq=p.min_dist_thr_sq)
+    args = (st.pos, st.rot, st.active_mask(), eng.map.df, eng.map.df_beam,
+            like_pts, like_valid, beam_pts, beam_labels, beam_valid, cloud[3])
+    layers = {
+        "normals on the host": time_ms(
+            lambda: eng.scan_normals(pts_ds, cloud[0].shape[0]), 5),
+        "weighted draws (moments, eigh, top-k)": time_ms(sample, 5),
+        "trilinear likelihood": time_ms(lambda: likelihood_measure(
+            eng.map.df, st.pos, st.rot, like_pts, like_valid,
+            lp.match_dist_min, lp.match_dist_flat, lp.match_weight,
+            trilinear=True), 5),
+        "DDA beam march": time_ms(lambda: beam_measure(
+            eng.map.df_beam, st.pos, st.rot, beam_pts, beam_labels,
+            beam_valid, cloud[3], **kw), 5),
+        "measure_models total": time_ms(lambda: eng._measure_models(*args), 5),
+    }
+    layers["rest of push_cloud (PF tail, host)"] = (
+        statistics.median(steady) * 1e3 - layers["normals on the host"]
+        - layers["weighted draws (moments, eigh, top-k)"]
+        - layers["measure_models total"])
+    print("phase 9 split (ms): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
+
+
+def trilinear_gate_phase(card):
+    """Phase 10: the Tier-3 gate with ``--interp trilinear`` (three
+    variants, 220 steps), launch counts zeroed before and read after,
+    each variant beside the JAX package's record; a failed gate raises.
+    The result goes to chiprun_out/tier3_gate_trilinear.json."""
+    import torch
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.ops import local_gather as olg
+    from mcl_3dl_tpu_torch.tools import run_tier3
+
+    kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
+               "local": olg.local_score}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    traces = {}
+    result = run_tier3.run_all(device="cuda", traces=traces,
+                               interp="trilinear")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    result["device"] = "cuda"
+    with open("chiprun_out/tier3_gate_trilinear.json", "w") as f:
+        json.dump(result, f, indent=1)
+    with open("docs/TIER3_GATE_TRILINEAR.json") as f:
+        ref = json.load(f)
+    for name, trace in traces.items():
+        g, r = result[name], ref[name]
+        tiers = {}
+        for t in trace:
+            tiers[f"{t[0]},{t[1]}"] = tiers.get(f"{t[0]},{t[1]}", 0) + 1
+        print(f"phase 10 trilinear gate {name}: pass {g['pass']}, "
+              f"{g['poses']} poses, max error {g['max_error_m']} m [JAX "
+              f"record {r['max_error_m']}] ({g['pose_violations']} "
+              f"violations), max tf diff {g['max_tf_diff_m']} m [JAX record "
+              f"{r['max_tf_diff_m']}] ({g['tf_violations']} violations), "
+              f"kidnap {g.get('kidnap')}, {g['seconds']:.2f} s, tiers "
+              f"(like,beam): {tiers} {card}", flush=True)
+    print(f"phase 10 trilinear gate launches {launches} {card}", flush=True)
+    assert result["pass"] and result["interp"] == "trilinear", result
+    assert launches["like"] == 0 and launches["beam"] == 0, launches
 
 
 class Tee:
@@ -494,6 +660,12 @@ def main() -> int:
 
     # ---- phase 8: the Tier-3 gate through the port
     gate_phase(card)
+
+    # ---- phase 9: every option at full width
+    all_options_phase(card)
+
+    # ---- phase 10: the trilinear Tier-3 gate
+    trilinear_gate_phase(card)
 
     # phase 5's profiled step comes last: after a torch.profiler session
     # the host path of every later launch reads slower, phase 6's included

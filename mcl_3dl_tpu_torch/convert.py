@@ -11,20 +11,34 @@ import numpy as np
 import torch
 
 from mcl_3dl_tpu_torch.config import Params
+from mcl_3dl_tpu_torch.map import occupancy as mocc
 from mcl_3dl_tpu_torch.map.distance_field import DistanceField, from_codes
 from mcl_3dl_tpu_torch.math.filters import FilterState
 from mcl_3dl_tpu_torch.state import ParticleState
 
 
 def distance_field(field, origin, cell, trunc, weights, field2d=None,
-                   device=None) -> DistanceField:
+                   device=None, packed=None) -> DistanceField:
     """A ``DistanceField`` around the u8 ``field`` [nx, ny, nz]; a given
-    ``field2d`` must equal the z-major view the port derives from it."""
-    df = from_codes(field, origin, cell, trunc, weights, device)
+    ``field2d`` must equal the z-major view the port derives from it, and
+    a given ``packed`` (the uint32 corner pack) the pack it derives."""
+    df = from_codes(field, origin, cell, trunc, weights, device,
+                    pack=packed is not None)
     if field2d is not None and not np.array_equal(
             np.asarray(field2d), df.field2d.cpu().numpy()):
         raise ValueError("field2d does not match the z-major view of field")
+    if packed is not None and (df.packed is None or not np.array_equal(
+            np.asarray(packed, np.uint32),
+            df.packed.cpu().numpy().view(np.uint32))):
+        raise ValueError("packed does not match the corner pack of field")
     return df
+
+
+def occupancy_grid(occupied, min_label, rep_point, origin, cell,
+                   device=None) -> mocc.OccupancyGrid:
+    """An ``OccupancyGrid`` around the JAX package's arrays."""
+    return mocc.from_arrays(occupied, min_label, rep_point, origin, cell,
+                            device)
 
 
 def particle_state(pos, rot, odom_err_lin, odom_err_ang, noise, prob,

@@ -10,13 +10,23 @@ A host shell around one measurement step on the device:
   bias, pose expectation, jump detection, TF smoothing, covariance,
   convergence flags, resampling, noise redraw, expansion resetting and
   the global-localization decay.
-* services — resize (:1019-1025), expansion reset (:1026-1038), global
-  localization (:1039-1099) and the one-shot correlative search.
+* services — landmark (:899-940), resize (:1019-1025), expansion reset
+  (:1026-1038), global localization (:1039-1099), the one-shot
+  correlative search, the map update merge (:1350-1378), and the
+  inspection calls: particles, matched/unmatched clouds, beam status,
+  diagnostics and the accumulated-scan PCD dump.
 
 The measurement tiers are chosen on the host: the ``fits`` flags of both
 models come back in one device-to-host read per step, and ``aux`` reports
 ``tier_like``/``tier_beam`` with the JAX package's ids (0 grouped
 kernel, 1 per-point box kernel, 2 plain gather, -1 model off).
+
+Every ``Params`` option runs: nearest or trilinear sampling
+(``likelihood.interp``; trilinear tracking samples the plain gather,
+global mode samples nearest), the fixed march or the DDA raycast over the
+occupancy grid (``beam.use_raycast_using_dda``, which makes the grouped
+beam ineligible), and the uniform or the normal-weighted point sampler
+(``use_random_sampler_with_normal``; normals estimated on the host).
 
 Randomness comes from one ``torch.Generator`` on the engine's device,
 seeded from ``Params.seed``; every function below the engine takes its
@@ -26,11 +36,8 @@ Above ``num_particles`` active particles a step runs in global mode: the
 likelihood model samples a slot bucket that follows the reference's point
 ramp (:func:`global_slots`), the beam model is dropped while its global
 budget is 0, and the particle count decays 0.75x a step.  Capacity grows
-and shrinks on the host in power-of-two buckets.
-
-Not ported: landmarks, map updates, the diagnostics services, the normal-
-weighted sampler, trilinear sampling, the DDA raycast, checkpoints and the
-fleet.
+and shrinks on the host in power-of-two buckets.  Checkpoints are
+``checkpoint.py``; the fleet is not ported.
 """
 
 from __future__ import annotations
@@ -47,26 +54,32 @@ from mcl_3dl_tpu_torch import state as st
 from mcl_3dl_tpu_torch.cloud_accum import (CloudAccumulation,
                                            CloudAccumulationPassThrough)
 from mcl_3dl_tpu_torch.config import Params
+from mcl_3dl_tpu_torch.io.pcd import write_pcd
 from mcl_3dl_tpu_torch.map import correlative as mc
 from mcl_3dl_tpu_torch.map.map_data import MapData
 from mcl_3dl_tpu_torch.map.voxel import voxel_downsample
+from mcl_3dl_tpu_torch.math import f32
 from mcl_3dl_tpu_torch.math import filters as mf
 from mcl_3dl_tpu_torch.math import quat as mq
 from mcl_3dl_tpu_torch.math import quat_np as mqn
-from mcl_3dl_tpu_torch.math.nd import normal_likelihood
+from mcl_3dl_tpu_torch.math.nd import NormalLikelihoodNd, normal_likelihood
 from mcl_3dl_tpu_torch.models.beam import (BeamVirtualPoints, beam_measure,
                                            beam_measure_grouped)
 from mcl_3dl_tpu_torch.models.imu_gravity import imu_gravity_likelihood
+from mcl_3dl_tpu_torch.models.landmark import landmark_likelihood
 from mcl_3dl_tpu_torch.models.likelihood import clip_mask, likelihood_measure
 from mcl_3dl_tpu_torch.models.motion import (OdomDelta,
                                              predict_differential_drive,
                                              reset_error_integrals)
-from mcl_3dl_tpu_torch.models.samplers import (draw_uniform_indices,
-                                               sample_uniform)
+from mcl_3dl_tpu_torch.models.samplers import (
+    draw_gumbel, draw_uniform_indices, estimate_normals_host,
+    normal_weight_direction, sample_uniform,
+    sample_weighted_without_replacement, weights_along)
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.state import ParticleState
-from mcl_3dl_tpu_torch.status import (ConvergenceStatus, ErrorCode,
-                                      FilterStatus, MeasureResult, Status)
+from mcl_3dl_tpu_torch.status import (ConvergenceStatus, Diagnostics,
+                                      ErrorCode, FilterStatus, MeasureResult,
+                                      Status)
 
 # TF32 would keep ~3 decimal digits in the small f32 transforms
 # (einsum/matmul in the models and the per-bin moments): off.
@@ -75,14 +88,18 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 class StepDraws(NamedTuple):
-    """Random draws of one measurement step."""
+    """Random draws of one measurement step.  The uniform sampler reads
+    the indices, the normal-weighted sampler the Gumbel draws (one a
+    cloud slot); the other pair is ``None``."""
 
-    like_idx: torch.Tensor          # [K_like] i64 sampled cloud indices
-    beam_idx: torch.Tensor          # [K_beam] i64
+    like_idx: Optional[torch.Tensor]  # [K_like] i64 sampled cloud indices
+    beam_idx: Optional[torch.Tensor]  # [K_beam] i64
     u0: torch.Tensor                # [] f32 resampling comb offset in [0, 1)
     resample_normals: torch.Tensor  # [cap, 6] f32
     noise_normals: torch.Tensor     # [cap, 4] f32
     expand_normals: torch.Tensor    # [cap, 6] f32
+    like_gumbel: Optional[torch.Tensor] = None   # [P] f32
+    beam_gumbel: Optional[torch.Tensor] = None   # [P] f32
 
 
 def _bucket(n: int, base: int = 64) -> int:
@@ -152,6 +169,14 @@ def beam_num_steps(params: Params) -> int:
                          / params.map_grid_min)) + 2
 
 
+def dda_num_steps(params: Params) -> int:
+    """Probe bound of the DDA march: half-cell probes over ``clip_far +
+    hit_range``."""
+    bp = params.beam
+    return int(math.ceil((bp.clip_far + bp.hit_range)
+                         / (bp.dda_grid_size * 0.5))) + 2
+
+
 class MCL3DL:
     """6-DOF Monte Carlo localizer on one CUDA device."""
 
@@ -159,12 +184,6 @@ class MCL3DL:
                  capacity: Optional[int] = None, device=None):
         self.params = params or Params()
         p = self.params
-        if p.likelihood.interp != "nearest":
-            raise NotImplementedError("trilinear sampling: later slice")
-        if p.use_random_sampler_with_normal:
-            raise NotImplementedError("normal-weighted sampler: later slice")
-        if p.beam.use_raycast_using_dda:
-            raise NotImplementedError("DDA raycast: later slice")
         self.device = resolve_device(device)
         dev = self.device
         self._gen = torch.Generator(device=dev)
@@ -210,6 +229,12 @@ class MCL3DL:
         self.localized_last = 0.0
         self.global_localization_fix_cnt = 0
         self.cnt_measure = 0
+        self.match_output_last = -1e18
+        # the matched/unmatched debug clouds (pub_matched_/pub_unmatched_,
+        # src/mcl_3dl.cpp:762-805): a callback (t, matched [M, 3],
+        # unmatched [U, 3], both in the map frame), called at most every
+        # match_output_interval_interval seconds; None skips them
+        self.on_match_clouds = None
         self.status = Status()
         self.entropy = 0.0
 
@@ -218,6 +243,7 @@ class MCL3DL:
         self._accum_odom: list = []
         self._accum_stamps: list = []
         self._last_scan_base: Optional[np.ndarray] = None
+        self._pc_all_accum: list = []       # output_pcd: scans in the map frame
         self._n_active_host = p.num_particles
         self.last_aux: Optional[dict] = None     # host copy of the last step's aux
         self._resample_sigma = torch.tensor(
@@ -239,16 +265,23 @@ class MCL3DL:
         default to the full budgets."""
         p = self.params
         cap = self.pstate.capacity
+        if p.use_random_sampler_with_normal:
+            n = like_keep.shape[0]
+            sample = dict(like_idx=None, beam_idx=None,
+                          like_gumbel=draw_gumbel(n, self._gen, self.device),
+                          beam_gumbel=draw_gumbel(n, self._gen, self.device))
+        else:
+            sample = dict(
+                like_idx=draw_uniform_indices(
+                    like_keep, like_slots or p.likelihood.num_points,
+                    self._gen),
+                beam_idx=draw_uniform_indices(
+                    beam_keep, beam_slots or p.beam.num_points, self._gen))
         return StepDraws(
-            like_idx=draw_uniform_indices(
-                like_keep, like_slots or p.likelihood.num_points, self._gen),
-            beam_idx=draw_uniform_indices(
-                beam_keep, beam_slots or p.beam.num_points, self._gen),
             u0=torch.rand((), generator=self._gen, device=self.device),
             resample_normals=self._normals(cap, 6),
             noise_normals=self._normals(cap, 4),
-            expand_normals=self._normals(cap, 6),
-        )
+            expand_normals=self._normals(cap, 6), **sample)
 
     # -------------------------------------------------------------- capacity
 
@@ -281,6 +314,26 @@ class MCL3DL:
         self.has_map = True
         self._accum_clear()
         self.accum.reset()
+        return self.map
+
+    def update_map(self, points: np.ndarray, labels: Optional[np.ndarray] = None):
+        """cbMapcloudUpdate + the merge timer (src/mcl_3dl.cpp:141-153,
+        1350-1369): the update cloud, downsampled at the update leaf size,
+        merged into the map, whose every index (``df``, ``df_beam``, the
+        corner pack, ``occ``) is built anew; nothing sized at the old map
+        is kept."""
+        if self.map is None:
+            return None
+        p = self.params
+        pts = np.asarray(points, np.float64).reshape(-1, 3)
+        if labels is None:
+            labels = np.zeros((pts.shape[0],), np.uint32)
+        pts, attrs = voxel_downsample(
+            pts, (p.update_downsample_x, p.update_downsample_y,
+                  p.update_downsample_z),
+            attrs=np.asarray(labels, np.float64)[:, None])
+        self.map = self.map.merged_with(
+            pts, np.round(attrs[:, 0]).astype(np.uint32))
         return self.map
 
     # ------------------------------------------------------------- pose seed
@@ -436,6 +489,18 @@ class MCL3DL:
         return pts_ds, tuple(torch.as_tensor(a).to(self.device)
                              for a in (cloud, cloud_label, cloud_valid, origins))
 
+    def scan_normals(self, pts_ds, bucket: int) -> Optional[torch.Tensor]:
+        """Surface normals of the downsampled scan, padded to the cloud's
+        bucket and on the engine's device (``estimate_normals_host``), or
+        ``None`` when the normal-weighted sampler is off."""
+        p = self.params
+        if not p.use_random_sampler_with_normal:
+            return None
+        normals = np.zeros((bucket, 3), np.float32)
+        normals[:len(pts_ds)] = estimate_normals_host(
+            pts_ds, p.random_sampler_with_normal.normal_search_range)
+        return torch.as_tensor(normals).to(self.device)
+
     def _measure_base(self, pts_base, labels, origins_base, t,
                       odom=None) -> Optional[MeasureResult]:
         self.cnt_measure += 1
@@ -446,6 +511,8 @@ class MCL3DL:
         dev = self.device
         self._last_scan_base, cloud = self.prepare_cloud(pts_base, labels,
                                                          origins_base)
+        pts_ds = self._last_scan_base
+        normals = self.scan_normals(pts_ds, cloud[0].shape[0])
 
         op = odom[0] if odom is not None else self.odom_pos
         orot = odom[1] if odom is not None else self.odom_rot
@@ -477,7 +544,8 @@ class MCL3DL:
             (p.std_warn_thresh_xy, p.std_warn_thresh_z, p.std_warn_thresh_yaw),
             global_mode=global_mode,
             global_slots=(global_slots(p, self._n_active_host)
-                          if global_mode else None))
+                          if global_mode else None),
+            occ=self.map.occ, normals=normals)
         aux = to_host(aux)
         self.last_aux = aux
 
@@ -515,6 +583,24 @@ class MCL3DL:
         self.status.particle_size = n_active
         self._n_active_host = n_active
         self.status.entropy = self.entropy
+
+        if p.output_pcd:
+            moved = mq.rotate(torch.as_tensor(aux["pub_rot"]),
+                              torch.as_tensor(pts_ds, dtype=torch.float32))
+            self._pc_all_accum.append(
+                (moved + torch.as_tensor(aux["pub_pos"])).numpy())
+        # interval-throttled matched/unmatched clouds (src/mcl_3dl.cpp:
+        # 762-805): at most every match_output_interval_interval seconds,
+        # re-armed by a backward time jump (stamp + 1 s < last)
+        if self.on_match_clouds is not None and (
+                t > self.match_output_last + p.match_output_interval_interval
+                or t + 1.0 < self.match_output_last):
+            self.match_output_last = t
+            matched, unmatched = self.classify_cloud(pts_ds, aux["e_pos"],
+                                                     aux["e_rot"])
+            pts_map = mqn.rotate(np.asarray(aux["e_rot"]),
+                                 np.asarray(pts_ds, np.float64)) + aux["e_pos"]
+            self.on_match_clouds(t, pts_map[matched], pts_map[unmatched])
         return MeasureResult(
             stamp=t, pos=aux["pub_pos"], rot=aux["pub_rot"], cov=aux["cov"],
             map_to_odom_pos=aux["map_to_odom_pos"],
@@ -544,12 +630,16 @@ class MCL3DL:
     def sample_points(self, cloud, cloud_label, cloud_valid,
                       draws: Optional[StepDraws] = None, *,
                       global_mode: bool = False, global_slots=None,
-                      n_active=None):
+                      n_active=None, state: Optional[ParticleState] = None,
+                      normals=None):
         """Clip and sample (likelihood .cpp:79-103 / beam :98-122):
         ``(like_pts, like_valid, beam_pts, beam_labels, beam_valid,
         points_not_found, draws)``.  In global mode the valid slots follow
         the reference's point ramp at ``n_active`` (a device scalar),
-        clipped to the slot bucket."""
+        clipped to the slot bucket.  The normal-weighted sampler reads the
+        scan's ``normals`` [P, 3] and the particle ``state`` before the
+        step (its mean and covariance, setParticleStatistics,
+        src/mcl_3dl.cpp:369-375)."""
         p = self.params
         lp, bp = p.likelihood, p.beam
         like_slots, beam_slots, use_beam = self.slots(global_mode,
@@ -561,9 +651,25 @@ class MCL3DL:
         if draws is None:
             draws = self.draw_step(like_keep, beam_keep, like_slots,
                                    beam_slots)
-        like_pts, like_valid, _ = sample_uniform(cloud, like_keep, draws.like_idx)
-        beam_pts, beam_valid, beam_idx = sample_uniform(cloud, beam_keep,
-                                                        draws.beam_idx)
+        if p.use_random_sampler_with_normal:
+            sw = p.random_sampler_with_normal
+            mean_pos, mean_rot = pf.expectation(state)
+            cov = st.covariance6(state, state.prob, mean_pos, mean_rot)
+            direction, amp = normal_weight_direction(
+                cov[:3, :3], mean_rot, sw.perform_weighting_ratio,
+                sw.max_weight_ratio, sw.max_weight)
+            like_pts, like_valid, _ = sample_weighted_without_replacement(
+                cloud, weights_along(normals, like_keep, direction, amp),
+                like_slots, draws.like_gumbel)
+            beam_pts, beam_valid, beam_idx = \
+                sample_weighted_without_replacement(
+                    cloud, weights_along(normals, beam_keep, direction, amp),
+                    beam_slots, draws.beam_gumbel)
+        else:
+            like_pts, like_valid, _ = sample_uniform(cloud, like_keep,
+                                                     draws.like_idx)
+            beam_pts, beam_valid, beam_idx = sample_uniform(cloud, beam_keep,
+                                                            draws.beam_idx)
         if global_mode:
             # the point-count shrink (setGlobalLocalizationStatus,
             # lidar_measurement_model_likelihood.cpp:63-77) from the full
@@ -593,15 +699,18 @@ class MCL3DL:
         eligible.  Each model keeps its own boxes and ``fits`` flag; both
         flags come to the host in one transfer, and the layout is built
         only if one of them fits.  ``use_beam`` overrides
-        ``params.use_beam_model`` (global mode drops the beam)."""
+        ``params.use_beam_model`` (global mode drops the beam).  Trilinear
+        sampling makes the likelihood ineligible, the DDA raycast the
+        beam (as in the JAX engine)."""
         p = self.params
         use_beam = p.use_beam_model if use_beam is None else use_beam
         n_cap = pos.shape[0]
         rmat = mq.rotation_matrix(mq.normalize(rot))
         steps_g = beam_num_steps(p)
-        use_grouped_beam = (use_beam and n_cap % og.TILE == 0
-                            and steps_g + 1 <= 64)
-        share_like = n_cap % og.TILE == 0
+        use_grouped_beam = (use_beam and not p.beam.use_raycast_using_dda
+                            and n_cap % og.TILE == 0 and steps_g + 1 <= 64)
+        share_like = (p.likelihood.interp == "nearest"
+                      and n_cap % og.TILE == 0)
         if not (share_like or use_grouped_beam):
             return rmat, None, None
         cap = og.default_overflow_cap(n_cap)
@@ -625,10 +734,15 @@ class MCL3DL:
 
     def _measure_models(self, pos, rot, mask, df, df_beam, like_pts,
                         like_valid, beam_pts, beam_labels, beam_valid,
-                        origins, use_beam=None):
+                        origins, use_beam=None, *, occ=None,
+                        global_mode=False):
         """Per-particle measurement likelihoods (measure_func,
         src/mcl_3dl.cpp:402-425): ``(lik_l, qual_l, lik_b, tier_like,
-        tier_beam)``; ``use_beam`` overrides ``params.use_beam_model``."""
+        tier_beam)``; ``use_beam`` overrides ``params.use_beam_model``.
+        With ``interp="trilinear"`` tracking samples trilinear (tier 2) and
+        a ``global_mode`` step samples nearest, its layout built inside
+        the likelihood model; the DDA raycast marches ``occ`` (default the
+        map's)."""
         p = self.params
         lp, bp = p.likelihood, p.beam
         use_beam = p.use_beam_model if use_beam is None else use_beam
@@ -636,10 +750,14 @@ class MCL3DL:
             pos, rot, mask, df, df_beam, like_pts, like_valid, beam_pts,
             beam_labels, beam_valid, origins, use_beam)
 
-        lik_l, qual_l, tier_like = likelihood_measure(
-            df, pos, rot, like_pts, like_valid, lp.match_dist_min,
-            lp.match_dist_flat, lp.match_weight, active=mask, rmat=rmat,
-            grouped=grouped_like)
+        like_args = (df, pos, rot, like_pts, like_valid, lp.match_dist_min,
+                     lp.match_dist_flat, lp.match_weight)
+        if lp.interp == "nearest" or global_mode:
+            lik_l, qual_l, tier_like = likelihood_measure(
+                *like_args, active=mask, rmat=rmat, grouped=grouped_like)
+        else:
+            lik_l, qual_l, tier_like = likelihood_measure(
+                *like_args, rmat=rmat, trilinear=True)
 
         if not use_beam:
             return lik_l, qual_l, torch.ones_like(lik_l), tier_like, -1
@@ -654,12 +772,19 @@ class MCL3DL:
                 num_steps=beam_num_steps(p), grouped=grouped_beam, **kw)
             tier_beam = 0
         else:
-            num_steps = min(bp.max_sphere_steps,
-                            int(math.ceil((bp.clip_far + bp.hit_range)
-                                          / p.map_grid_min)) + 2)
-            lik_b, _ = beam_measure(df_beam, pos, rot, beam_pts, beam_labels,
-                                    beam_valid, origins, num_steps=num_steps,
-                                    **kw)
+            if bp.use_raycast_using_dda:
+                num_steps = dda_num_steps(p)
+            else:
+                num_steps = min(bp.max_sphere_steps,
+                                int(math.ceil((bp.clip_far + bp.hit_range)
+                                              / p.map_grid_min)) + 2)
+            lik_b, _ = beam_measure(
+                df_beam, pos, rot, beam_pts, beam_labels, beam_valid, origins,
+                num_steps=num_steps, use_dda=bp.use_raycast_using_dda,
+                occ=occ if occ is not None else self.map.occ,
+                filter_label_max=bp.filter_label_max,
+                ray_angle_half=bp.ray_angle_half,
+                min_dist_thr_sq=p.min_dist_thr_sq, **kw)
             tier_beam = 2
         return lik_l, qual_l, lik_b, tier_like, tier_beam
 
@@ -668,7 +793,8 @@ class MCL3DL:
                           odom_rot, prev_pos, prev_rot, f_pos, f_ang,
                           is_global_fix: bool, std_warn_thresh,
                           draws: Optional[StepDraws] = None, *,
-                          global_mode: bool = False, global_slots=None):
+                          global_mode: bool = False, global_slots=None,
+                          occ=None, normals=None):
         """The measurement update (src/mcl_3dl.cpp:363-893).  Returns
         ``(state, f_pos, f_ang, prev_pos, prev_rot, aux)``; ``draws``
         defaults to the engine generator's.
@@ -680,19 +806,23 @@ class MCL3DL:
         ``pf.resize``.  A non-global step is only run with ``n_active <=
         num_particles`` (the host mirror is refreshed from the device every
         step), so it does not build the decay and its ``did_resize`` reads
-        False."""
+        False.  ``occ`` is the DDA raycast's grid (default the map's),
+        ``normals`` [P, 3] the scan's normals for the normal-weighted
+        sampler."""
         p = self.params
         mask = state.active_mask()
         (like_pts, like_valid, beam_pts, beam_labels, beam_valid,
          points_not_found, draws) = self.sample_points(
             cloud, cloud_label, cloud_valid, draws, global_mode=global_mode,
-            global_slots=global_slots, n_active=state.n_active)
+            global_slots=global_slots, n_active=state.n_active, state=state,
+            normals=normals)
         use_beam = self.slots(global_mode, global_slots)[2]
 
         # --- per-particle likelihoods (measure_func, src/mcl_3dl.cpp:402-425)
         lik_l, qual_l, lik_b, tier_like, tier_beam = self._measure_models(
             state.pos, state.rot, mask, df, df_beam, like_pts, like_valid,
-            beam_pts, beam_labels, beam_valid, origins, use_beam)
+            beam_pts, beam_labels, beam_valid, origins, use_beam, occ=occ,
+            global_mode=global_mode)
         odom_error = normal_likelihood(
             torch.linalg.vector_norm(state.odom_err_lin, dim=-1),
             p.odom_err_integ_lin_sigma)
@@ -938,6 +1068,106 @@ class MCL3DL:
         prob = np.where(idx < n, np.exp(-60.0 * (1.0 - rel)), 0.0)
         prob = prob / max(prob[:n].sum(), 1e-12)
         return self._seed(n, pos, yaw, prob)
+
+    def landmark_step(self, state: ParticleState, meas_pos, meas_rot, nd,
+                      u0, normals6) -> ParticleState:
+        """The landmark update on ``state`` (src/mcl_3dl.cpp:899-940): the
+        6-D Gaussian of the pose difference as the likelihood, then
+        resampling with the draws ``u0`` and ``normals6`` [cap, 6]."""
+        lik = landmark_likelihood(state.pos, state.rot, meas_pos, meas_rot,
+                                  nd)
+        state2, _ = pf.measure(state, lik)
+        return pf.resample(state2, u0, normals6, self._resample_sigma)
+
+    def landmark(self, pos, rot, cov66) -> None:
+        """Landmark pose measurement (cbLandmark, src/mcl_3dl.cpp:899-940);
+        the Gaussian's normalization and inverse are computed on the host
+        once, as the reference's NormalLikelihoodNd constructor does."""
+        f = dict(dtype=torch.float32, device=self.device)
+        u0 = torch.rand((), generator=self._gen, device=self.device)
+        normals6 = self._normals(self.pstate.capacity, 6)
+        self.pstate = self.landmark_step(
+            self.pstate, torch.as_tensor(np.asarray(pos, np.float32), **f),
+            torch.as_tensor(np.asarray(rot, np.float32), **f),
+            NormalLikelihoodNd(cov66, device=self.device), u0, normals6)
+
+    # ------------------------------------------------------------ inspection
+
+    def get_particles(self):
+        """publishParticles (src/mcl_3dl.cpp:1101-1125): ``(pos [n, 3],
+        rot [n, 4] normalized, prob [n])`` of the active particles, numpy
+        float32."""
+        n = int(self.pstate.n_active)
+        rot = mq.normalize(self.pstate.rot[:n])
+        return (self.pstate.pos[:n].cpu().numpy(), rot.cpu().numpy(),
+                self.pstate.prob[:n].cpu().numpy())
+
+    def classify_cloud(self, points_base, pos, rot):
+        """The matched/unmatched debug clouds (src/mcl_3dl.cpp:761-805):
+        ``(matched, unmatched)`` masks over ``points_base`` placed at the
+        pose ``pos``, ``rot``, from the trilinear field (whatever
+        ``likelihood.interp`` is): unmatched beyond
+        ``unmatch_output_dist``, matched below ``match_output_dist``."""
+        p = self.params
+        f = dict(dtype=torch.float32, device=self.device)
+        q = mq.rotate(torch.as_tensor(np.asarray(rot, np.float32), **f),
+                      torch.as_tensor(np.asarray(points_base, np.float32), **f)
+                      ) + torch.as_tensor(np.asarray(pos, np.float32), **f)
+        d = self.map.df.sample_trilinear(q)
+        unmatched = d > f32(p.unmatch_output_dist)
+        matched = ~unmatched & (d < f32(p.match_output_dist))
+        return matched.cpu().numpy(), unmatched.cpu().numpy()
+
+    def debug_beam_status(self, pos, rot, points_base, origin_indices,
+                          origins_base) -> np.ndarray:
+        """Beam classification [B] (``BeamStatus``) of ``points_base`` at
+        one pose: the data behind the reference's ray and collision
+        markers (src/mcl_3dl.cpp:464-628), by the configured raycaster."""
+        p = self.params
+        bp = p.beam
+        f = dict(dtype=torch.float32, device=self.device)
+        num_steps = (dda_num_steps(p) if bp.use_raycast_using_dda
+                     else bp.max_sphere_steps)
+        _, status = beam_measure(
+            self.map.df_beam,
+            torch.as_tensor(np.asarray(pos, np.float32), **f)[None, :],
+            torch.as_tensor(np.asarray(rot, np.float32), **f)[None, :],
+            torch.as_tensor(np.asarray(points_base, np.float32), **f),
+            torch.as_tensor(np.asarray(origin_indices, np.int64),
+                            device=self.device),
+            torch.ones(len(points_base), dtype=torch.bool, device=self.device),
+            torch.as_tensor(np.asarray(origins_base, np.float32), **f),
+            map_grid_min=p.map_grid_min, map_grid_max=p.map_grid_max,
+            hit_range=bp.hit_range, beam_likelihood_min=bp.beam_likelihood,
+            num_points_default=max(bp.num_points, 1),
+            sin_total_ref=math.sin(bp.ang_total_ref),
+            add_penalty_short_only_mode=bp.add_penalty_short_only_mode,
+            num_steps=num_steps, use_dda=bp.use_raycast_using_dda,
+            occ=self.map.occ, filter_label_max=bp.filter_label_max,
+            ray_angle_half=bp.ray_angle_half,
+            min_dist_thr_sq=p.min_dist_thr_sq)
+        return status[0].cpu().numpy()
+
+    def save_accumulated_pcd(self, path) -> int:
+        """Write the scans accumulated in the map frame (``output_pcd``) to
+        a binary PCD, the reference's shutdown dump (src/mcl_3dl.cpp:
+        1340-1348); returns the number of points written."""
+        if not self._pc_all_accum:
+            return 0
+        pts = np.concatenate(self._pc_all_accum, axis=0)
+        write_pcd(path, pts)
+        return len(pts)
+
+    def diagnostics(self) -> Diagnostics:
+        """diagnoseStatus (src/mcl_3dl.cpp:1127-1148)."""
+        if self.status.error == ErrorCode.POINTS_NOT_FOUND:
+            return Diagnostics(False, "Valid points does not found.",
+                               self.has_map, self.has_odom, self.has_imu)
+        if self.status.convergence_status == ConvergenceStatus.LARGE_STD_VALUE:
+            return Diagnostics(False, "Too Large Standard Deviation.",
+                               self.has_map, self.has_odom, self.has_imu)
+        return Diagnostics(True, "OK", self.has_map, self.has_odom,
+                           self.has_imu)
 
 
 def standable_mask(points: np.ndarray, grid: float, dist_weight) -> np.ndarray:

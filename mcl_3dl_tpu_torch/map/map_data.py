@@ -1,10 +1,12 @@
 """Map container: points + compiled device indexes (src/mcl_3dl.cpp:
-1150-1170 map load with voxel downsample).
+1150-1170 map load with voxel downsample; :1350-1378 the periodic merge
+of ``mapcloud_update``).
 
-"Compiling" the map builds the likelihood distance field ``df`` and the
-label-filtered beam field ``df_beam`` on one grid, so one pose-grouped
-particle layout serves both measurement kernels.  The occupancy grid of
-the DDA raycast is not ported (``occ`` is ``None``).
+"Compiling" the map builds the likelihood distance field ``df`` (with
+the corner pack of trilinear sampling), the label-filtered beam field
+``df_beam`` on the same grid, so one pose-grouped particle layout serves
+both measurement kernels, and the occupancy grid ``occ`` of the DDA
+raycast.  A merge rebuilds all of them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 from mcl_3dl_tpu_torch.config import Params
 from mcl_3dl_tpu_torch.map.distance_field import (DistanceField,
                                                   build_distance_field)
+from mcl_3dl_tpu_torch.map.occupancy import OccupancyGrid, build_occupancy_grid
 from mcl_3dl_tpu_torch.map.voxel import voxel_downsample
 
 
@@ -26,16 +29,18 @@ class MapData:
     labels: np.ndarray                    # [M] uint32
     df: DistanceField                     # likelihood / general radius queries
     df_beam: DistanceField                # raycast field (label-filtered)
-    occ: None                             # DDA occupancy grid: not ported
+    occ: Optional[OccupancyGrid]          # DDA raycast grid
     params: Params
 
     @classmethod
     def build(cls, points, params: Params, labels: Optional[np.ndarray] = None,
-              device=None) -> "MapData":
+              device=None, downsample: bool = True) -> "MapData":
+        """Build from a raw map cloud; ``downsample`` applies the map voxel
+        grid (map_downsample_x/y/z, src/mcl_3dl.cpp:1155-1158) first."""
         points = np.asarray(points, np.float64).reshape(-1, 3)
         if labels is None:
             labels = np.zeros((points.shape[0],), np.uint32)
-        if points.shape[0] > 0:
+        if downsample and points.shape[0] > 0:
             points, attrs = voxel_downsample(
                 points,
                 (params.map_downsample_x, params.map_downsample_y,
@@ -62,9 +67,27 @@ class MapData:
         if visible.all():
             df_beam = df
         else:
+            # raycasts sample the nearest cell only: no corner pack
             df_beam = build_distance_field(
                 points[visible], cell, trunc, params.dist_weight,
                 grid=(df.origin.cpu().numpy().astype(np.float64), df.shape),
-                device=device)
+                device=device, pack_corners=False)
+        occ = build_occupancy_grid(points, params.beam.dda_grid_size, labels,
+                                   device=device)
         return cls(points=points, labels=labels, df=df, df_beam=df_beam,
-                   occ=None, params=params)
+                   occ=occ, params=params)
+
+    def merged_with(self, update_points, update_labels=None) -> "MapData":
+        """Merge an update cloud and recompile every index on the same
+        device (src/mcl_3dl.cpp:1355-1369).  The update cloud is expected
+        downsampled at the update leaf size (cbMapcloudUpdate, :141-153);
+        the merged cloud is not downsampled again, as ``*pc_map2_ =
+        *pc_map_ + *pc_update_``."""
+        update_points = np.asarray(update_points, np.float64).reshape(-1, 3)
+        if update_labels is None:
+            update_labels = np.zeros((update_points.shape[0],), np.uint32)
+        merged = np.concatenate([self.points, update_points], axis=0)
+        merged_labels = np.concatenate(
+            [self.labels, np.asarray(update_labels, np.uint32)])
+        return MapData.build(merged, self.params, merged_labels,
+                             device=self.df.device, downsample=False)

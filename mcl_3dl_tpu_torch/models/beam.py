@@ -1,6 +1,8 @@
 """Beam LIDAR measurement model (src/lidar_measurement_model_beam.cpp:
-124-192) with the kd-tree-style raycast (raycasts/
-raycast_using_kdtree.h:58-109) over the distance field.
+124-192) with both raycasters of the reference: the kd-tree-style march
+(raycasts/raycast_using_kdtree.h:58-109) over the distance field, and
+the DDA march (raycasts/raycast_using_dda.h:106-159) over the occupancy
+grid.
 
 Beam classification: first collision -> TOTAL_REFLECTION if grazing,
 else HIT within ``hit_range`` of the scan endpoint, else SHORT; no
@@ -10,8 +12,8 @@ at beam_likelihood_min (:146-152).
 Tier 0 (``beam_measure_grouped``) runs kernel K2 over the pose-grouped
 layout shared with the likelihood model and rescores envelope outliers
 with the exact fixed march; tier 2 (``beam_measure``) is the sphere
-trace ``raycast_df``, whose loop exit is checked on the host.  The DDA
-raycast over an occupancy grid is not ported.
+trace ``raycast_df`` or, with ``use_dda``, the half-cell march
+``raycast_occ``; each checks its loop exit on the host every probe.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from mcl_3dl_tpu_torch.map.distance_field import DistanceField
+from mcl_3dl_tpu_torch.map.occupancy import OccupancyGrid
 from mcl_3dl_tpu_torch.math import f32
 from mcl_3dl_tpu_torch.math import quat as mq
 from mcl_3dl_tpu_torch.ops import grouped as og
@@ -95,6 +98,69 @@ def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
         found & (t_entry >= 0.0) & (span > f32(map_grid_min)),
         torch.clamp((d_entry - d0_hit) / span, 0.0, 1.0), 1.0)
     return found, cpos, torch.where(found, sin_ang, 0.0)
+
+
+def raycast_occ(occ: OccupancyGrid, begin, end, hit_tolerance: float,
+                filter_label_max: int, num_steps: int,
+                ray_angle_half: float = 0.0, min_dist_thr_sq: float = 0.0):
+    """DDA-style raycast against the occupancy grid: ``(collision,
+    collision_pos [..., 3], sin_angle)``, ``sin_angle`` 1 on a hit (the
+    reference hardcodes it, raycast_using_dda.h:151-152).
+
+    Probes every half cell from ``t = step`` (a superset of the exact
+    voxel walk, raycast_using_dda.h:106-159) until ``|ray| +
+    hit_tolerance``.  A ray starting outside the map's box never collides
+    (:70-75), and the voxel holding the ray's origin is skipped.  An
+    occupied voxel whose minimum label is at most ``filter_label_max``
+    blocks when one of its representative points lies within
+    ``max((ray_angle_half * foot)^2, min_dist_thr_sq)`` of the ray
+    (squared perpendicular distance, ``foot`` the distance from the ray's
+    begin to the point's foot; :237-258); the first passing representative
+    is the collision point.  With both thresholds 0 every occupied voxel
+    blocks at its first representative.  The loop stops once every ray
+    has hit or passed its range, checked on the host each probe, or
+    after ``num_steps``.
+    """
+    step = f32(occ.cell * 0.5)
+    length, direction = _ray(begin, end)
+    max_t = length + f32(hit_tolerance)
+    dev = begin.device
+    dims_hi = occ.origin + torch.tensor(occ.shape, dtype=torch.float32,
+                                        device=dev) * f32(occ.cell)
+    begin_inside = torch.all((begin >= occ.origin) & (begin <= dims_hi), dim=-1)
+    begin_voxel = occ.voxel(begin)
+    refine = ray_angle_half > 0.0 or min_dist_thr_sq > 0.0
+    shape = begin.shape[:-1]
+    found = torch.zeros(shape, dtype=torch.bool, device=dev)
+    cpos = torch.zeros(shape + (3,), device=dev)
+    s = 0
+    while s < num_steps and bool(torch.any(~found & (f32((s + 1) * step) < max_t))):
+        t = f32((s + 1) * step)      # one f32 product, as in JAX
+        pos = begin + direction * t
+        occ_hit, label, rep_pos = occ.lookup(pos)        # rep_pos [..., R, 3]
+        same_as_begin = torch.all(occ.voxel(pos) == begin_voxel, dim=-1)
+        if refine:
+            rel = rep_pos - begin[..., None, :]
+            foot = torch.abs(torch.sum(rel * direction[..., None, :], dim=-1))
+            thr_sq = torch.clamp((f32(ray_angle_half) * foot) ** 2,
+                                 min=f32(min_dist_thr_sq))
+            pass_r = torch.sum(rel * rel, dim=-1) - foot * foot < thr_sq
+            near_ray = torch.any(pass_r, dim=-1)
+            # the first passing representative (argmax returns the first
+            # maximum; no bool argmax on CUDA)
+            first = torch.argmax(pass_r.to(torch.uint8), dim=-1)
+            point_pos = torch.gather(
+                rep_pos, -2, first[..., None, None].expand(
+                    first.shape + (1, 3)))[..., 0, :]
+        else:
+            near_ray = True
+            point_pos = rep_pos[..., 0, :]
+        blocked = (occ_hit & near_ray & (label <= int(filter_label_max))
+                   & ~same_as_begin & (t < max_t) & begin_inside & ~found)
+        cpos = torch.where(blocked[..., None], point_pos, cpos)
+        found = found | blocked
+        s += 1
+    return found, cpos, torch.where(found, 1.0, 0.0)
 
 
 def raycast_fixed(df: DistanceField, begin, end, map_grid_min: float,
@@ -248,16 +314,25 @@ def beam_measure_grouped(df_beam: DistanceField, pos, rot, points,
 def beam_measure(df_beam: DistanceField, pos, rot, points, origin_idx,
                  valid, origins, *, map_grid_min, map_grid_max, hit_range,
                  beam_likelihood_min, num_points_default, sin_total_ref,
-                 add_penalty_short_only_mode, num_steps):
-    """Tier 2: ``(likelihood [N], status [N, B])`` through the sphere
-    trace ``raycast_df`` on every (particle, beam)."""
+                 add_penalty_short_only_mode, num_steps, use_dda=False,
+                 occ: OccupancyGrid = None, filter_label_max=0xFFFFFFFF,
+                 ray_angle_half=0.0, min_dist_thr_sq=0.0):
+    """Tier 2: ``(likelihood [N], status [N, B])`` on every (particle,
+    beam) through the sphere trace ``raycast_df``, or with ``use_dda``
+    through ``raycast_occ`` over ``occ`` (which reads the label and
+    perpendicular-distance parameters)."""
     rmat = mq.rotation_matrix(mq.normalize(rot))
     ends = torch.einsum("bj,nij->nbi", points, rmat) + pos[:, None, :]
     sensor_org = origins[origin_idx]
     begins = torch.einsum("bj,nij->nbi", sensor_org, rmat) + pos[:, None, :]
-    collision, cpos, sin_ang = raycast_df(
-        df_beam, begins, ends, map_grid_min, map_grid_max, hit_range,
-        num_steps)
+    if use_dda:
+        collision, cpos, sin_ang = raycast_occ(
+            occ, begins, ends, hit_range, filter_label_max, num_steps,
+            ray_angle_half=ray_angle_half, min_dist_thr_sq=min_dist_thr_sq)
+    else:
+        collision, cpos, sin_ang = raycast_df(
+            df_beam, begins, ends, map_grid_min, map_grid_max, hit_range,
+            num_steps)
     dist_sq = torch.sum((ends - cpos) ** 2, dim=-1)
     graze = sin_ang <= f32(sin_total_ref)
     status = torch.where(

@@ -15,6 +15,9 @@ package reports it:
    overflow rescore;
 1. per-point 32x32x16 box tables, kernel K3 (ops/local_gather.py);
 2. the plain gather.
+
+Trilinear sampling (``trilinear=True``) always runs the plain gather of
+``DistanceField.sample_trilinear`` and reports tier 2.
 """
 
 from __future__ import annotations
@@ -151,8 +154,10 @@ def _gather_score(df, iq, valid, match_dist_min, match_dist_flat,
 def likelihood_measure(df: DistanceField, pos, rot, points, valid,
                        match_dist_min: float, match_dist_flat: float,
                        match_weight: float, *, active=None, rmat=None,
-                       grouped=None):
-    """``(likelihood [N], quality [N], tier)`` with nearest-cell sampling.
+                       grouped=None, trilinear=False):
+    """``(likelihood [N], quality [N], tier)`` with nearest-cell sampling,
+    or with ``trilinear`` the interpolated field through the plain gather
+    (tier 2).
 
     ``grouped``: ``(stats, layout, lo, fits)`` prepared by the engine, which
     shares one sorted layout with the beam model; ``fits`` is a host bool
@@ -163,14 +168,15 @@ def likelihood_measure(df: DistanceField, pos, rot, points, valid,
     n = pos.shape[0]
     kw = dict(match_dist_min=match_dist_min, match_dist_flat=match_dist_flat,
               match_weight=match_weight)
-    use_local = (n % 128 == 0 and n >= 128
+    use_local = (not trilinear and n % 128 == 0 and n >= 128
                  and float(df.trunc) > float(match_dist_min))
     if rmat is None:
         rmat = mq.rotation_matrix(mq.normalize(rot))
 
     if not use_local:
         transformed = torch.einsum("kj,nij->nki", points, rmat) + pos[:, None, :]
-        d = df.sample_nearest(transformed)                        # [N, K]
+        d = (df.sample_trilinear(transformed) if trilinear
+             else df.sample_nearest(transformed))                 # [N, K]
         score, mcount = _score_from_dist(d, valid[None, :], dim=-1, **kw)
         return (*_finalize(score, mcount, valid), TIER_GATHER)
 

@@ -2,7 +2,7 @@
 seeded drive on fresh engines, compared bit for bit.
 
     python -m mcl_3dl_tpu_torch.tools.repro_drive [--drives 3] [--ops]
-        [--scan rows|torch] [--drive main|recovery]
+        [--scan rows|torch] [--drive main|recovery|all-options]
 
 Each drive is ``grouped_pairs.engine()`` and ``grouped_pairs.drive`` from
 ``numpy.random.default_rng(0)``, the drive of ``chip_smoke.py``: 1,048,576
@@ -25,6 +25,12 @@ seeds and two ``resize_particles`` decays to 64 particles), per
 measurement the episode, tiers, particle count and a fingerprint of the
 particle poses the step started from.
 
+``--drive all-options`` compares the drive of ``tools/all_options.py``
+(``chip_smoke.py``'s phase 9: trilinear sampling, the DDA raycast and
+the normal-weighted sampler at 1,048,576 particles, ``N_SCANS``
+measurements from the tracking spread), per measurement the tiers, the
+raw z and a fingerprint of the particle poses.
+
 ``--scan torch`` puts ``torch.cumsum`` back in place of ``math.cumsum``
 in resampling and point sampling (the device-wide scan, whose float sums
 depend on block timing), to show what the fixed-order scan changes.
@@ -34,6 +40,7 @@ Every line carries the card's ``nvidia-smi`` name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import traceback
 
 import numpy as np
@@ -41,12 +48,12 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-from mcl_3dl_tpu_torch import pf
+from mcl_3dl_tpu_torch import pf, worlds
 from mcl_3dl_tpu_torch.engine import resolve_device
 from mcl_3dl_tpu_torch.models import samplers
 from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
-from mcl_3dl_tpu_torch.tools import card
+from mcl_3dl_tpu_torch.tools import all_options, card
 from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
 from mcl_3dl_tpu_torch.tools import recovery
 
@@ -155,14 +162,39 @@ def record_recovery(log_ops=False):
     return steps, (log.records if log is not None else None)
 
 
+def record_all_options(log_ops=False):
+    """One all-options drive on a fresh engine: ``(steps, op records or
+    None)``, a step being ``(tier_like, tier_beam, raw z, particle
+    print)``."""
+    eng = all_options.engine()
+    eng.initial_pose(np.zeros(3), all_options.IDENT, worlds.TRACKING_COV)
+    scans = all_options.Scans(np.random.default_rng(0),
+                              all_options.CLOUD_POINTS)
+    steps = []
+
+    def on_step(_, res):
+        aux = eng.last_aux
+        steps.append((aux["tier_like"], aux["tier_beam"],
+                      float(res.raw_pos[2]), fingerprint(eng.pstate.pos)[2]))
+
+    log = OpLog() if log_ops else None
+    with log if log is not None else contextlib.nullcontext():
+        all_options.measure(eng, scans, all_options.N_SCANS, on_step)
+    return steps, (log.records if log is not None else None)
+
+
+RECORDS = {"main": record_drive, "recovery": record_recovery,
+           "all-options": record_all_options}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--drives", type=int, default=3)
     ap.add_argument("--ops", action="store_true")
     ap.add_argument("--scan", choices=("rows", "torch"), default="rows")
-    ap.add_argument("--drive", choices=("main", "recovery"), default="main")
+    ap.add_argument("--drive", choices=sorted(RECORDS), default="main")
     a = ap.parse_args(argv)
-    record = record_drive if a.drive == "main" else record_recovery
+    record = RECORDS[a.drive]
     device = resolve_device()
     if a.scan == "torch":
         for mod in (pf, samplers):
@@ -178,6 +210,9 @@ def main(argv=None):
                 what = (f"tiers {s[0]},{s[1]}, overflow {s[2]} of cap {s[3]}, "
                         f"fits {s[4]}/{s[5]}, raw z {s[6]:.6f}, particles "
                         f"{s[7]:x}")
+            elif a.drive == "all-options":
+                what = (f"tiers {s[0]},{s[1]}, raw z {s[2]:.6f}, particles "
+                        f"{s[3]:x}")
             else:
                 what = (f"{s[0]}, tiers {s[1]},{s[2]}, {s[3]} particles, "
                         f"from particles {s[4]:x}")

@@ -3,7 +3,7 @@ test/CMakeLists.txt:120-168) through the port, on the synthetic drive of
 ``tools/tier3.py``.
 
     python -m mcl_3dl_tpu_torch.tools.run_tier3 [--steps 220] [--cpu]
-                                                [--log converted_bag.npz]
+        [--interp nearest|trilinear] [--log converted_bag.npz]
 
 The reference's gate math:
 
@@ -23,9 +23,14 @@ still-valid attitude, a same-floor z prior), whose 512 seeds put the
 next step above ``num_particles``, in global mode.  The gates skip
 ``RECOVERY_WINDOW`` seconds after the kidnap and hold every later pose.
 
+``--interp`` sets the likelihood field's sampling for every variant, as
+the JAX package's ``--interp`` does (its trilinear record is
+``docs/TIER3_GATE_TRILINEAR.json``); the default is the shipped
+``nearest``.
+
 Prints one JSON object with the layout of the JAX package's record
-(``docs/TIER3_GATE.json``), each variant's wall seconds and the device
-added; exits 1 if a gate fails.  The engine runs on the CUDA device
+(``docs/TIER3_GATE.json``, with ``interp``), each variant's wall seconds
+and the device added; exits 1 if a gate fails.  The engine runs on the CUDA device
 unless ``--cpu`` is given.
 """
 
@@ -142,13 +147,20 @@ def run_gate(log: ReplayLog, use_imu=True, params_override=None, device=None,
     return out
 
 
-def run_all(steps=STEPS, device=None, log_path=None, traces=None) -> dict:
+def run_all(steps=STEPS, device=None, log_path=None, traces=None,
+            interp=None) -> dict:
     """The three variants on the synthetic drive of ``steps`` scans (or
     with and without IMU on a converted log): the result object.
-    ``traces``, a dict, receives each variant's per-measurement trace."""
-    def gate(name, log, **kw):
+    ``traces``, a dict, receives each variant's per-measurement trace;
+    ``interp`` overrides ``likelihood.interp`` in every variant."""
+    base = {"likelihood.interp": interp} if interp else {}
+
+    def gate(name, log, params_override=None, **kw):
         trace = [] if traces is not None else None
-        gates[name] = run_gate(log, device=device, trace=trace, **kw)
+        gates[name] = run_gate(log, device=device, trace=trace,
+                               params_override=dict(base,
+                                                    **(params_override or {})),
+                               **kw)
         if traces is not None:
             traces[name] = trace
 
@@ -170,7 +182,7 @@ def run_all(steps=STEPS, device=None, log_path=None, traces=None) -> dict:
                                   s_start=0.2),
              use_imu=True, params_override=NO_ODOM_OVERRIDE)
     result = {"source": source, **gates}
-    result["interp"] = LikelihoodParams().interp
+    result["interp"] = interp or LikelihoodParams().interp
     result["pass"] = all(g["pass"] for g in gates.values())
     return result
 
@@ -184,11 +196,15 @@ def main(argv=None) -> int:
                     help=f"synthetic drive length (default {STEPS})")
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain versions on the CPU")
+    ap.add_argument("--interp", default=None, choices=["nearest", "trilinear"],
+                    help="likelihood field sampling of every variant "
+                         "(default: the shipped nearest)")
     args = ap.parse_args(argv)
     if args.log and args.steps is not None:
         ap.error("--steps applies to the synthetic drive, not --log")
     device = "cpu" if args.cpu else None
-    result = run_all(args.steps or STEPS, device, args.log)
+    result = run_all(args.steps or STEPS, device, args.log,
+                     interp=args.interp)
     result["device"] = resolve_device(device).type
     print(json.dumps(result, indent=1))
     return 0 if result["pass"] else 1

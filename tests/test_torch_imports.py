@@ -86,11 +86,49 @@ print("IMPORTED:" + mod.__name__)
     "mcl_3dl_tpu_torch.map.correlative", "mcl_3dl_tpu_torch.io.replay",
     "mcl_3dl_tpu_torch.tools.tier3", "mcl_3dl_tpu_torch.tools.run_tier3",
     "mcl_3dl_tpu_torch.tools.recovery",
+    "mcl_3dl_tpu_torch.map.occupancy", "mcl_3dl_tpu_torch.map.distance_field",
+    "mcl_3dl_tpu_torch.models.samplers", "mcl_3dl_tpu_torch.models.landmark",
+    "mcl_3dl_tpu_torch.io.pcd", "mcl_3dl_tpu_torch.checkpoint",
+    "mcl_3dl_tpu_torch.profiling", "mcl_3dl_tpu_torch.tools.run_replay",
+    "mcl_3dl_tpu_torch.tools.all_options",
 ])
 def test_module_imports_with_jax_blocked(module):
-    """The global-mode, correlative, replay and Tier-3 modules import with
-    JAX and the JAX package made unimportable."""
+    """The global-mode, correlative, replay and Tier-3 modules, and this
+    slice's options and services, import with JAX and the JAX package
+    made unimportable."""
     out = subprocess.run([sys.executable, "-c", _BLOCKED, module], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert f"IMPORTED:{module}" in out.stdout.splitlines()
+
+
+_ALL_OPTIONS = r"""
+import sys
+for name in ("jax", "jaxlib", "mcl_3dl_tpu", "__graft_entry__"):
+    sys.modules[name] = None          # any import of them raises
+import numpy as np
+import mcl_3dl_tpu_torch as m
+from mcl_3dl_tpu_torch import worlds
+p = m.Params(num_particles=1024,
+             likelihood=m.LikelihoodParams(interp="trilinear", num_points=8),
+             use_random_sampler_with_normal=True,
+             beam=m.BeamParams(use_raycast_using_dda=True, clip_far=2.0),
+             output_pcd=True)
+eng = m.MCL3DL(p, device="cpu")
+eng.load_map(worlds.world_map())
+pts = worlds.scan(np.random.default_rng(0), 256)
+res = eng.measure_direct(pts, np.array([[0.0, 0.0, worlds.SENSOR_Z]], np.float32),
+                         np.zeros(len(pts), np.int32), 0.1)
+assert np.isfinite(res.pos).all()
+print("TIERS:%d,%d" % (eng.last_aux["tier_like"], eng.last_aux["tier_beam"]))
+"""
+
+
+def test_every_option_constructs_and_steps_with_jax_blocked():
+    """``MCL3DL`` with trilinear sampling, the normal-weighted sampler, the
+    DDA raycast and ``output_pcd`` constructs and measures (tiers 2/2)
+    with JAX and the JAX package unimportable."""
+    out = subprocess.run([sys.executable, "-c", _ALL_OPTIONS], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "TIERS:2,2" in out.stdout.splitlines()
