@@ -64,7 +64,32 @@ time):
 10. the trilinear Tier-3 gate (``tools/run_tier3.py --interp
    trilinear``, the three variants at 220 steps), beside the JAX
    package's record ``docs/TIER3_GATE_TRILINEAR.json``; launch counts
-   zeroed before and read after; a failed gate raises.
+   zeroed before and read after; a failed gate raises;
+11. the fleet at full width (BASELINE config 5, ``tools/fleet.py``), in a
+   child process at the 6x1x1 pose grid (``MCL_G_*``, read at import):
+   1024 robots x 10,240 particles sharing the flagship map, 96 likelihood
+   points + 3 beams on a 1024-point scan, through
+   ``parallel.fleet_filter_step_grouped`` (launch counts zeroed before,
+   read after), robot ``i``'s odometry moved by ``i * APART_M`` in x so
+   that the robots publish distinct poses: a warm-up fleet step on given
+   per-robot draws, then ``FLEET_STEPS`` timed steps on the robots' own
+   generators.  At least 99% of robots at tiers 0/0, every published pose
+   finite, neighbours' published poses apart, two robots
+   (chosen by seed) bit-equal to the single-robot step on the warm-up's
+   state and draws; K1 and K2 at one robot's fleet shapes against their
+   plain versions as in phase 4, and the split of a robot's step as in
+   phase 5.  Then ``parallel.fleet_filter_step``
+   (``torch.func.vmap`` of the ``spmd_safe`` step, tiers 2/2) at 128 x
+   10,240 (robots apart as above), its peak memory, two robots within
+   atol 1e-5 of the single-robot ``spmd_safe`` step; last, eight robots' grouped steps
+   under ``torch.profiler`` for the fleet's device-busy share;
+12. the particle split on the card: ``parallel.sharded_filter_step`` over
+   NCCL with a world of 1 on the main path's 1,048,576-particle state
+   (launch counts zeroed before, read after), against the plain step on
+   the same draws (tiers 0/0, every output bit-equal), and the
+   machinery's cost in ms (the two timed in turns).  Its launch counts go
+   on phase 4's K1-K3 rows as ``split_launches`` (the same kernels at the
+   same shapes, timed once).
 
 Times are medians of CUDA-event timings (``tools.time_ms``); bounds are
 ``tools.bound``: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
@@ -88,6 +113,12 @@ import numpy as np
 
 STEADY_STEPS = 20              # extra scans timed at steady state
 SEEDS_MIN = 100_000            # global localization: a ~100k-seed search
+FLEET_ROBOTS = 1024            # BASELINE config 5: 1024 robots x 10,240
+BATCHED_ROBOTS = 128
+FLEET_STEPS = 1                # timed grouped fleet steps after the warm-up
+FLEET_GRID = dict(MCL_G_YAW="6", MCL_G_PITCH="1", MCL_G_ROLL="1")
+PROFILED_ROBOTS = 8            # the fleet's device-busy share, profiled
+APART_M = 0.01                 # robot i's odometry offset in x: i * APART_M
 
 
 def sh(cmd):
@@ -121,6 +152,346 @@ def profile_step(eng, scan, origin, card):
     print(f"phase 5 profile: step wall {wall * 1e3:.2f} ms, device busy "
           f"{dev_us / 1e3:.2f} ms ({100.0 * dev_us / 1e3 / (wall * 1e3):.1f}%),"
           f" {len(events)} distinct ops {card}", flush=True)
+
+
+def report(results, card, kname, src, replaces, kernel, plain, bytes_, ops,
+           launches_n, sel, phase=4):
+    """Hold ``kernel`` against ``plain`` on the slots ``sel`` (an index
+    tensor), time both, and record the kernel's line in ``results``."""
+    import torch
+    from mcl_3dl_tpu_torch.tools import bound, split, time_ms
+
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(got, want):
+        a, b = a[sel], b[sel]
+        assert torch.equal(a, b), f"{kname}: kernel != plain"
+        err = max(err, float((a - b).abs().max()))
+    ms = time_ms(kernel, 25)
+    dev_ms, host_ms = split(kernel)
+    plain_ms = time_ms(plain, 3)
+    bound_ms, by = bound(bytes_, ops)
+    results.append(dict(name=kname, route="cuda", source=src,
+                        replaces=replaces, launches=launches_n,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=by, library_ms=None))
+    print(f"phase {phase} {kname}: bit-equal on {sel.numel()} slots, {ms:.4f} ms "
+          f"(device {dev_ms:.4f} + host {host_ms:.4f} a call; bound "
+          f"{bound_ms:.4f} ms by {by}), plain {plain_ms:.2f} ms {card}",
+          flush=True)
+
+
+K1_SRC = ("mcl_3dl_tpu_torch/csrc/grouped.cu",
+          "mcl_3dl_tpu/ops/grouped.py:778 (_like_kernel)")
+K2_SRC = ("mcl_3dl_tpu_torch/csrc/grouped.cu",
+          "mcl_3dl_tpu/ops/grouped.py:918 (_beam_kernel)")
+
+
+def model_layers(eng, inp, k1_ms, k2_ms):
+    """Each layer of ``_measure_models`` timed alone on the engine's state
+    (``time_ms``, 5 runs; ``inp`` from ``grouped_pairs.kernel_inputs``),
+    K1's and K2's times given: ms by layer name, the total last."""
+    import torch
+    from mcl_3dl_tpu_torch.models.beam import (_overflow_beam_pen,
+                                               grouped_beam_inputs)
+    from mcl_3dl_tpu_torch.models.likelihood import (_score_from_dist,
+                                                     grouped_like_inputs)
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.tools import time_ms
+
+    p = eng.params
+    lp, bp = p.likelihood, p.beam
+    st, df = eng.pstate, eng.map.df
+    stats, vp, over = inp.stats, inp.vp, inp.layout.over_idx
+    like_pts, like_valid = inp.like_pts, inp.like_valid
+
+    def like_rescore():
+        q = og.overflow_transform(stats.A, over, like_pts)
+        d = og.overflow_field_lookup(df.field, q).to(torch.float32) * (df.trunc / 255.0)
+        return _score_from_dist(d, like_valid[None, :], lp.match_dist_min,
+                                lp.match_dist_flat, lp.match_weight, dim=1)
+
+    def beam_rescore():
+        return _overflow_beam_pen(
+            eng.map.df_beam, st.pos, st.rot, over, inp.beam_pts,
+            inp.beam_labels, inp.beam_valid, inp.cloud[3],
+            map_grid_min=p.map_grid_min, map_grid_max=p.map_grid_max,
+            hit_range=bp.hit_range,
+            sin_total_ref=inp.beam_kw["sin_total_ref"],
+            long_pen=inp.beam_kw["long_pen"], num_steps=vp.nprobe - 1)
+
+    group_args = inp.group_args
+    return {
+        "group stats + boxes + layout": time_ms(lambda: eng.group(*group_args), 5),
+        "like tables + skip words": time_ms(lambda: grouped_like_inputs(
+            df, stats, inp.lo_l, like_pts, like_valid, lp.match_dist_min), 5),
+        "K1 like_score": k1_ms,
+        "like overflow rescore": time_ms(like_rescore, 5),
+        "beam tables + skip words": time_ms(lambda: grouped_beam_inputs(
+            eng.map.df_beam, stats, inp.lo_b, vp, inp.beam_valid,
+            p.map_grid_max), 5),
+        "K2 beam_pen": k2_ms,
+        "beam overflow rescore": time_ms(beam_rescore, 5),
+        "measure_models total": time_ms(
+            lambda: eng._measure_models(*group_args), 5),
+    }
+
+
+def kernel_rows(report_fn, inp, launches, suffix, phase):
+    """K1 and K2 held against their plain versions at ``inp``
+    (``grouped_pairs.kernel_inputs``)."""
+    from mcl_3dl_tpu_torch.ops import grouped as og
+
+    report_fn(f"like_score{suffix}", *K1_SRC,
+              lambda: og.grouped_like_score(*inp.like, **inp.like_kw),
+              lambda: og.like_score_plain(*inp.like, **inp.like_kw),
+              *inp.like_bound, launches["like"], inp.kept, phase=phase)
+    report_fn(f"beam_pen{suffix}", *K2_SRC,
+              lambda: (og.grouped_beam_pen(*inp.beam, **inp.beam_kw),),
+              lambda: (og.beam_pen_plain(*inp.beam, **inp.beam_kw),),
+              *inp.beam_bound, launches["beam"], inp.kept, phase=phase)
+
+
+def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
+                steps=FLEET_STEPS):
+    """Phase 11, in a child process whose environment holds the fleet's
+    pose grid: the grouped fleet, its checks and K1/K2 at its shapes,
+    then the batched fleet.  Prints its lines and, last, ``FLEET_ROWS``
+    and the kernels' JSON rows."""
+    import torch
+    from mcl_3dl_tpu_torch import worlds
+    from mcl_3dl_tpu_torch.ops import build
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.ops import local_gather as olg
+    from mcl_3dl_tpu_torch.parallel import (fleet_filter_step,
+                                            fleet_filter_step_grouped)
+    from mcl_3dl_tpu_torch.tools import fleet, sharded
+    from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
+
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]).splitlines()[0]
+    card = f"[{smi}]"
+    grid = f"{og.G_YAW}x{og.G_PITCH}x{og.G_ROLL}"
+    build.library()
+    results = []
+    eng = fleet.engine(fleet.NUM_PARTICLES, "cuda")
+    start = eng.pstate
+    cap = start.capacity
+    scan = worlds.scan(np.random.default_rng(0), fleet.CLOUD_POINTS)
+
+    kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
+               "local": olg.local_score}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    step = fleet_filter_step_grouped(eng)
+    args = fleet.apart(fleet.inputs(eng, robots, scan), APART_M)
+    draws = fleet.given_draws(eng, args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    warm = step(*args, None, draws)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    times, out = [], warm
+    for _ in range(steps):
+        nxt = fleet.advance(args, out)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = step(*nxt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    aux = out[5]
+    t0_like = float((aux["tier_like"] == 0).float().mean())
+    t0_beam = float((aux["tier_beam"] == 0).float().mean())
+    t0_both = float(((aux["tier_like"] == 0) & (aux["tier_beam"] == 0))
+                    .float().mean())
+    finite = bool(torch.isfinite(aux["pub_pos"]).all()
+                  and torch.isfinite(aux["pub_rot"]).all())
+    gap = fleet.min_gap(aux["pub_pos"])
+    ms = statistics.median(times) * 1e3
+    print(f"phase 11 grouped fleet {robots}x{cap} (grid {grid}): warm-up "
+          f"{warm_s * 1e3:.1f} ms, step {ms:.1f} ms (median of {steps}: "
+          f"{[round(t * 1e3, 1) for t in times]}), {robots / (ms / 1e3):.2f} "
+          f"robot-updates/s, {robots * cap * 99 / (ms / 1e3):.4e} "
+          f"particle-point evals/s, tiers 0/0 on {t0_both:.4f} of robots "
+          f"(like {t0_like:.4f}, beam {t0_beam:.4f}), launches {launches}, "
+          f"robots apart by {APART_M} m in odometry, published {gap:.4f} m "
+          f"apart at least, peak memory {peak / 2**30:.2f} GiB, set-up {setup_s:.1f} s "
+          f"{card}", flush=True)
+    assert t0_both >= 0.99, (t0_like, t0_beam)
+    assert finite, "non-finite published pose"
+    assert gap > APART_M / 2, gap
+    assert launches["like"] > 0 and launches["beam"] > 0, launches
+
+    # two robots against the single-robot step on the warm-up's inputs
+    thr = (eng.params.std_warn_thresh_xy, eng.params.std_warn_thresh_z,
+           eng.params.std_warn_thresh_yaw)
+    picks = sorted(np.random.default_rng(11).choice(robots, 2, replace=False))
+    for i in picks:
+        i = int(i)
+        one = eng._measurement_step(
+            fleet.robot_state(args[0], i), args[1], args[2],
+            *(a[i] for a in args[3:11]), fleet.robot_filter(args[11], i),
+            fleet.robot_filter(args[12], i), False, thr,
+            type(draws)(*(None if d is None else d[i] for d in draws)))
+        same = sharded.outputs_equal(
+            one, (fleet.robot_state(warm[0], i), fleet.robot_filter(warm[1], i),
+                  fleet.robot_filter(warm[2], i), warm[3][i], warm[4][i],
+                  {k: (v[i] if isinstance(one[5][k], torch.Tensor)
+                       else v[i].item()) for k, v in warm[5].items()}))
+        print(f"phase 11 robot {i}: bit-equal to the single-robot step "
+              f"{same} {card}", flush=True)
+        assert same, f"robot {i} differs from the single-robot step"
+
+    # K1 and K2 at one robot's fleet shapes (its state after the warm-up)
+    eng.pstate = fleet.robot_state(warm[0], int(picks[0]))
+    inp = gp.kernel_inputs(eng, worlds.scan(np.random.default_rng(2),
+                                            fleet.CLOUD_POINTS))
+    print(f"phase 11 K1/K2 at {cap} particles, {inp.layout.A.shape[0]} "
+          f"tiles, {og.G_GROUPS} groups {card}", flush=True)
+    kernel_rows(lambda *a, **k: report(results, card, *a, **k), inp,
+                launches, "_fleet", 11)
+    layers = model_layers(eng, inp, results[-2]["ms"], results[-1]["ms"])
+    layers["rest of a robot's step (sampling, PF tail, host)"] = (
+        ms / robots - layers["measure_models total"])
+    print("phase 11 split of a robot's step (ms): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
+    del inp, warm, out, nxt, args, draws
+    eng.pstate = start
+
+    # the batched fleet (tier 2) at BATCHED_ROBOTS x 10,240
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bstep = fleet_filter_step(eng)
+    args = fleet.apart(fleet.inputs(eng, batched, scan), APART_M)
+    draws = fleet.given_draws(eng, args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    bout = bstep(*args, None, draws)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    bnext = bstep(*fleet.advance(args, bout))
+    torch.cuda.synchronize()
+    b_ms = (time.perf_counter() - t1) * 1e3
+    bpeak = torch.cuda.max_memory_allocated()
+    baux = bout[5]
+    tiers = sorted(set(zip(baux["tier_like"].tolist(),
+                           baux["tier_beam"].tolist())))
+    errs = []
+    for i in sorted(np.random.default_rng(12).choice(batched, 2,
+                                                     replace=False)):
+        i = int(i)
+        one = eng._measurement_step(
+            fleet.robot_state(args[0], i), args[1], args[2],
+            *(a[i] for a in args[3:11]), fleet.robot_filter(args[11], i),
+            fleet.robot_filter(args[12], i), False, thr,
+            type(draws)(*(None if d is None else d[i] for d in draws)),
+            spmd_safe=True)
+        errs.append(max(float((one[5][k] - baux[k][i]).abs().max())
+                        for k in ("e_pos", "pub_pos")))
+    b_gap = fleet.min_gap(baux["pub_pos"])
+    print(f"phase 11 batched fleet {batched}x{cap}: warm-up {warm_s * 1e3:.1f}"
+          f" ms, step {b_ms:.1f} ms, {batched / (b_ms / 1e3):.2f} "
+          f"robot-updates/s, tiers {tiers}, published poses {b_gap:.4f} m "
+          f"apart at least, peak memory "
+          f"{bpeak / 2**30:.2f} GiB, two robots against the single-robot "
+          f"spmd_safe step: max |e_pos, pub_pos| diff {max(errs):.3e} "
+          f"{card}", flush=True)
+    assert tiers == [(2, 2)], tiers
+    assert bool(torch.isfinite(bnext[5]["pub_pos"]).all())
+    assert max(errs) <= 1e-5, errs
+    assert b_gap > APART_M / 2, b_gap
+    del args, draws, bout, bnext
+
+    # the grouped fleet's device-busy share: PROFILED_ROBOTS robots'
+    # steps under torch.profiler (last: once the profiler has run, later
+    # launches read slower)
+    from torch.profiler import ProfilerActivity, profile
+    args = fleet.inputs(eng, PROFILED_ROBOTS, scan)
+    step(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"phase 11 profile: {PROFILED_ROBOTS} robots' grouped steps, wall "
+          f"{wall * 1e3:.1f} ms, device busy {dev_us / 1e3:.2f} ms "
+          f"({100.0 * dev_us / 1e3 / (wall * 1e3):.1f}%) {card}", flush=True)
+    print("FLEET_ROWS " + json.dumps(results), flush=True)
+
+
+def fleet_phase(card):
+    """Phase 11: ``fleet_child`` in a child process at ``FLEET_GRID``; its
+    lines are echoed, its kernel rows returned.  A failed child raises."""
+    env = dict(os.environ, **FLEET_GRID)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fleet-phase"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    rows = None
+    for line in proc.stdout:
+        if line.startswith("FLEET_ROWS "):
+            rows = json.loads(line[len("FLEET_ROWS "):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or rows is None:
+        raise RuntimeError(f"phase 11 failed (exit {proc.returncode})")
+    return rows
+
+
+def split_phase(eng, scan, card):
+    """Phase 12: ``sharded_filter_step`` over NCCL with a world of 1 on
+    the engine's state against the plain step (same draws), launch counts
+    zeroed before and read after and returned."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.ops import local_gather as olg
+    from mcl_3dl_tpu_torch.parallel import make_mesh
+    from mcl_3dl_tpu_torch.tools import sharded
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        kernels = {"like": og.grouped_like_score,
+                   "beam": og.grouped_beam_pen, "local": olg.local_score}
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        plain_ms, split_ms, equal, aux = sharded.time_split(eng, scan, mesh,
+                                                            iters=5)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    tiers = (aux["tier_like"], aux["tier_beam"])
+    print(f"phase 12 particle split, world 1 over {backend}: "
+          f"{eng.pstate.capacity} particles, tiers {tiers}, outputs bit-equal "
+          f"to the plain step {equal}, step {split_ms:.2f} ms against plain "
+          f"{plain_ms:.2f} ms (median of 5 each, in turns): machinery "
+          f"{split_ms - plain_ms:.2f} ms, launches {launches} {card}",
+          flush=True)
+    assert tiers == (0, 0), tiers
+    assert equal, "the split step differs from the plain step"
+    assert launches["like"] > 0 and launches["beam"] > 0, launches
+    return launches
 
 
 def lookup_phase(card):
@@ -456,6 +827,10 @@ class Tee:
 def main() -> int:
     import torch
 
+    if "--fleet-phase" in sys.argv:          # phase 11's child process
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        fleet_child()
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -463,12 +838,9 @@ def main() -> int:
     sys.stdout = Tee(sys.stdout, "chiprun_out/chip_smoke.log")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mcl_3dl_tpu_torch import worlds
-    from mcl_3dl_tpu_torch.models.beam import grouped_beam_inputs
-    from mcl_3dl_tpu_torch.models.likelihood import grouped_like_inputs
     from mcl_3dl_tpu_torch.ops import build
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
-    from mcl_3dl_tpu_torch.tools import bound, split, time_ms
     from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
 
     # ---- phase 1: device facts
@@ -534,103 +906,34 @@ def main() -> int:
           f"peak memory {peak / 2**30:.2f} GiB {card}", flush=True)
 
     # ---- phase 4: each kernel against its plain version, main-path shapes
-    p = eng.params
-    lp, bp = p.likelihood, p.beam
+    lp = eng.params.likelihood
     scan = worlds.scan(rng, gp.CLOUD_POINTS)
     inp = gp.kernel_inputs(eng, scan)
-    st = eng.pstate
-    df = eng.map.df
-    stats, layout, vp = inp.stats, inp.layout, inp.vp
-    like_pts, like_valid = inp.like_pts, inp.like_valid
     results = []
 
-    def report(kname, src, replaces, kernel, plain, bytes_, ops, launches_n,
-               sel, phase=4):
-        """Hold ``kernel`` against ``plain`` on the slots ``sel`` (an index
-        tensor), time both, and record the kernel's line."""
-        got = kernel()
-        want = plain()
-        torch.cuda.synchronize()
-        err = 0.0
-        for a, b in zip(got, want):
-            a, b = a[sel], b[sel]
-            assert torch.equal(a, b), f"{kname}: kernel != plain"
-            err = max(err, float((a - b).abs().max()))
-        ms = time_ms(kernel, 25)
-        dev_ms, host_ms = split(kernel)
-        plain_ms = time_ms(plain, 3)
-        bound_ms, by = bound(bytes_, ops)
-        results.append(dict(name=kname, route="cuda", source=src,
-                            replaces=replaces, launches=launches_n,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=by, library_ms=None))
-        print(f"phase {phase} {kname}: bit-equal on {sel.numel()} slots, {ms:.4f} ms "
-              f"(device {dev_ms:.4f} + host {host_ms:.4f} a call; bound "
-              f"{bound_ms:.4f} ms by {by}), plain {plain_ms:.2f} ms {card}",
-              flush=True)
+    def report_here(*a, **kw):
+        report(results, card, *a, **kw)
 
-    # K1 at [nt, 12, 1024] x 96 points x 97 bins
-    report("like_score", "mcl_3dl_tpu_torch/csrc/grouped.cu",
-           "mcl_3dl_tpu/ops/grouped.py:778 (_like_kernel)",
-           lambda: og.grouped_like_score(*inp.like, **inp.like_kw),
-           lambda: og.like_score_plain(*inp.like, **inp.like_kw),
-           *inp.like_bound, launches["like"], inp.kept)
-
-    # K2 at 3 beams x 61 probes x 97 bins
-    report("beam_pen", "mcl_3dl_tpu_torch/csrc/grouped.cu",
-           "mcl_3dl_tpu/ops/grouped.py:918 (_beam_kernel)",
-           lambda: (og.grouped_beam_pen(*inp.beam, **inp.beam_kw),),
-           lambda: (og.beam_pen_plain(*inp.beam, **inp.beam_kw),),
-           *inp.beam_bound, launches["beam"], inp.kept)
+    # K1 at [nt, 12, 1024] x 96 points x 97 bins, K2 at 3 beams x 61
+    # probes x 97 bins
+    kernel_rows(report_here, inp, launches, "", 4)
 
     # K3 at 96 points x 1M particles (tier-1 box tables of this state)
-    k3, kw3, k3_bound, k3_kept = gp.local_case(df, lp, st.pos, inp.rmat,
-                                               like_pts, like_valid)
-    report("local_score", "mcl_3dl_tpu_torch/csrc/local_gather.cu",
-           "mcl_3dl_tpu/ops/local_gather.py:44 (_score_kernel)",
-           lambda: olg.local_score(*k3, **kw3),
-           lambda: olg.local_score_plain(*k3, **kw3),
-           *k3_bound, launches["local"], k3_kept)
+    k3, kw3, k3_bound, k3_kept = gp.local_case(
+        eng.map.df, lp, eng.pstate.pos, inp.rmat, inp.like_pts,
+        inp.like_valid)
+    report_here("local_score", "mcl_3dl_tpu_torch/csrc/local_gather.cu",
+                "mcl_3dl_tpu/ops/local_gather.py:44 (_score_kernel)",
+                lambda: olg.local_score(*k3, **kw3),
+                lambda: olg.local_score_plain(*k3, **kw3),
+                *k3_bound, launches["local"], k3_kept)
     del k3
 
     # ---- phase 5: per-layer split of a steady step (CUDA events, 5 runs)
-    from mcl_3dl_tpu_torch.models.beam import _overflow_beam_pen
-    from mcl_3dl_tpu_torch.models.likelihood import _score_from_dist
-
-    over = layout.over_idx
     kms = {r["name"]: r["ms"] for r in results}
-
-    def like_rescore():
-        q = og.overflow_transform(stats.A, over, like_pts)
-        d = og.overflow_field_lookup(df.field, q).to(torch.float32) * (df.trunc / 255.0)
-        return _score_from_dist(d, like_valid[None, :], lp.match_dist_min,
-                                lp.match_dist_flat, lp.match_weight, dim=1)
-
-    def beam_rescore():
-        return _overflow_beam_pen(
-            eng.map.df_beam, st.pos, st.rot, over, inp.beam_pts,
-            inp.beam_labels, inp.beam_valid, inp.cloud[3],
-            map_grid_min=p.map_grid_min, map_grid_max=p.map_grid_max,
-            hit_range=bp.hit_range,
-            sin_total_ref=inp.beam_kw["sin_total_ref"],
-            long_pen=inp.beam_kw["long_pen"], num_steps=vp.nprobe - 1)
-
-    group_args = inp.group_args
-    layers = {
-        "group stats + boxes + layout": time_ms(lambda: eng.group(*group_args), 5),
-        "like tables + skip words": time_ms(lambda: grouped_like_inputs(
-            df, stats, inp.lo_l, like_pts, like_valid, lp.match_dist_min), 5),
-        "K1 like_score": kms["like_score"],
-        "like overflow rescore": time_ms(like_rescore, 5),
-        "beam tables + skip words": time_ms(lambda: grouped_beam_inputs(
-            eng.map.df_beam, stats, inp.lo_b, vp, inp.beam_valid,
-            p.map_grid_max), 5),
-        "K2 beam_pen": kms["beam_pen"],
-        "beam overflow rescore": time_ms(beam_rescore, 5),
-    }
-    models_ms = time_ms(lambda: eng._measure_models(*group_args), 5)
-    layers["measure_models total"] = models_ms
-    layers["rest of push_cloud (sampling, PF tail, host)"] = step_s * 1e3 - models_ms
+    layers = model_layers(eng, inp, kms["like_score"], kms["beam_pen"])
+    layers["rest of push_cloud (sampling, PF tail, host)"] = (
+        step_s * 1e3 - layers["measure_models total"])
     print("phase 5 split (ms): " + "; ".join(
         f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
 
@@ -656,7 +959,7 @@ def main() -> int:
     results += lookup_phase(card)
 
     # ---- phase 7: global recovery; K1 and K3 at its shapes
-    global_phase(card, report)
+    global_phase(card, report_here)
 
     # ---- phase 8: the Tier-3 gate through the port
     gate_phase(card)
@@ -666,6 +969,17 @@ def main() -> int:
 
     # ---- phase 10: the trilinear Tier-3 gate
     trilinear_gate_phase(card)
+
+    # ---- phase 11: the fleet at full width (a child at the fleet's grid)
+    results += fleet_phase(card)
+
+    # ---- phase 12: the particle split over NCCL, a world of 1
+    split = split_phase(eng, scan, card)
+    for r in results:          # phase 4's rows: the same kernels, shapes
+        key = {"like_score": "like", "beam_pen": "beam",
+               "local_score": "local"}.get(r["name"])
+        if key:
+            r["split_launches"] = split[key]
 
     # phase 5's profiled step comes last: after a torch.profiler session
     # the host path of every later launch reads slower, phase 6's included

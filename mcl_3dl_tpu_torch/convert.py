@@ -43,6 +43,9 @@ def occupancy_grid(occupied, min_label, rep_point, origin, cell,
 
 def particle_state(pos, rot, odom_err_lin, odom_err_ang, noise, prob,
                    prob_bias, n_active, device=None) -> ParticleState:
+    """One robot's state, or a fleet's with a leading robots axis (the JAX
+    fleet's batched state: every column ``[R, P, ...]``, ``n_active``
+    ``[R]``)."""
     def f(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 
@@ -50,7 +53,7 @@ def particle_state(pos, rot, odom_err_lin, odom_err_ang, noise, prob,
         pos=f(pos), rot=f(rot), odom_err_lin=f(odom_err_lin),
         odom_err_ang=f(odom_err_ang), noise=f(noise), prob=f(prob),
         prob_bias=f(prob_bias),
-        n_active=torch.tensor(int(n_active), dtype=torch.int32, device=device))
+        n_active=torch.as_tensor(np.array(n_active, np.int32), device=device))
 
 
 def filter_state(k, x, out, angle, device=None) -> FilterState:

@@ -37,7 +37,17 @@ likelihood model samples a slot bucket that follows the reference's point
 ramp (:func:`global_slots`), the beam model is dropped while its global
 budget is 0, and the particle count decays 0.75x a step.  Capacity grows
 and shrinks on the host in power-of-two buckets.  Checkpoints are
-``checkpoint.py``; the fleet is not ported.
+``checkpoint.py``.
+
+The fleet and the splits over ``torch.distributed`` are ``parallel/``;
+the step gains two switches for them.  ``spmd_safe`` (the batched fleet,
+``torch.func.vmap`` over the step) reads nothing on the host: the
+likelihood takes the plain gather (tier 2) without grouping, the beam
+marches a fixed trip count.  ``shard`` (the particle split) runs the step
+on this rank's slice of the capacity: the models on the slice with the
+rank's own tiers, the filter's boundaries (weight normalization, entropy,
+moments, covariance, the resampling CDF, the best particle) across every
+slice, and ``aux`` reports the worst tier any slice paid.
 """
 
 from __future__ import annotations
@@ -76,6 +86,7 @@ from mcl_3dl_tpu_torch.models.samplers import (
     normal_weight_direction, sample_uniform,
     sample_weighted_without_replacement, weights_along)
 from mcl_3dl_tpu_torch.ops import grouped as og
+from mcl_3dl_tpu_torch.shard import offset as shard_offset
 from mcl_3dl_tpu_torch.state import ParticleState
 from mcl_3dl_tpu_torch.status import (ConvergenceStatus, Diagnostics,
                                       ErrorCode, FilterStatus, MeasureResult,
@@ -260,28 +271,33 @@ class MCL3DL:
         return torch.randn((n, d), generator=self._gen, device=self.device)
 
     def draw_step(self, like_keep, beam_keep, like_slots=None,
-                  beam_slots=None) -> StepDraws:
-        """This step's draws from the engine's generator; the sample sizes
+                  beam_slots=None, *, gen=None, capacity=None) -> StepDraws:
+        """This step's draws from ``gen`` (default the engine's generator)
+        for ``capacity`` particles (default the engine's); the sample sizes
         default to the full budgets."""
         p = self.params
-        cap = self.pstate.capacity
+        gen = self._gen if gen is None else gen
+        dev = self.device
+        cap = self.pstate.capacity if capacity is None else capacity
         if p.use_random_sampler_with_normal:
             n = like_keep.shape[0]
             sample = dict(like_idx=None, beam_idx=None,
-                          like_gumbel=draw_gumbel(n, self._gen, self.device),
-                          beam_gumbel=draw_gumbel(n, self._gen, self.device))
+                          like_gumbel=draw_gumbel(n, gen, dev),
+                          beam_gumbel=draw_gumbel(n, gen, dev))
         else:
             sample = dict(
                 like_idx=draw_uniform_indices(
-                    like_keep, like_slots or p.likelihood.num_points,
-                    self._gen),
+                    like_keep, like_slots or p.likelihood.num_points, gen),
                 beam_idx=draw_uniform_indices(
-                    beam_keep, beam_slots or p.beam.num_points, self._gen))
+                    beam_keep, beam_slots or p.beam.num_points, gen))
+
+        def normals(d):
+            return torch.randn((cap, d), generator=gen, device=dev)
+
         return StepDraws(
-            u0=torch.rand((), generator=self._gen, device=self.device),
-            resample_normals=self._normals(cap, 6),
-            noise_normals=self._normals(cap, 4),
-            expand_normals=self._normals(cap, 6), **sample)
+            u0=torch.rand((), generator=gen, device=dev),
+            resample_normals=normals(6), noise_normals=normals(4),
+            expand_normals=normals(6), **sample)
 
     # -------------------------------------------------------------- capacity
 
@@ -627,11 +643,20 @@ class MCL3DL:
         return (global_slots or lp.num_points_global, max(beam_slots, 1),
                 p.use_beam_model and beam_slots > 0)
 
+    def keeps(self, cloud, cloud_valid):
+        """``(like_keep, beam_keep)``: the cloud slots inside each model's
+        clip range (likelihood .cpp:79-103 / beam :98-122)."""
+        lp, bp = self.params.likelihood, self.params.beam
+        return (cloud_valid & clip_mask(cloud, lp.clip_near, lp.clip_far,
+                                        lp.clip_z_min, lp.clip_z_max),
+                cloud_valid & clip_mask(cloud, bp.clip_near, bp.clip_far,
+                                        bp.clip_z_min, bp.clip_z_max))
+
     def sample_points(self, cloud, cloud_label, cloud_valid,
                       draws: Optional[StepDraws] = None, *,
                       global_mode: bool = False, global_slots=None,
                       n_active=None, state: Optional[ParticleState] = None,
-                      normals=None):
+                      normals=None, shard=None):
         """Clip and sample (likelihood .cpp:79-103 / beam :98-122):
         ``(like_pts, like_valid, beam_pts, beam_labels, beam_valid,
         points_not_found, draws)``.  In global mode the valid slots follow
@@ -639,22 +664,20 @@ class MCL3DL:
         clipped to the slot bucket.  The normal-weighted sampler reads the
         scan's ``normals`` [P, 3] and the particle ``state`` before the
         step (its mean and covariance, setParticleStatistics,
-        src/mcl_3dl.cpp:369-375)."""
+        src/mcl_3dl.cpp:369-375), over every slice with a ``shard``."""
         p = self.params
         lp, bp = p.likelihood, p.beam
         like_slots, beam_slots, use_beam = self.slots(global_mode,
                                                       global_slots)
-        like_keep = cloud_valid & clip_mask(
-            cloud, lp.clip_near, lp.clip_far, lp.clip_z_min, lp.clip_z_max)
-        beam_keep = cloud_valid & clip_mask(
-            cloud, bp.clip_near, bp.clip_far, bp.clip_z_min, bp.clip_z_max)
+        like_keep, beam_keep = self.keeps(cloud, cloud_valid)
         if draws is None:
             draws = self.draw_step(like_keep, beam_keep, like_slots,
                                    beam_slots)
         if p.use_random_sampler_with_normal:
             sw = p.random_sampler_with_normal
-            mean_pos, mean_rot = pf.expectation(state)
-            cov = st.covariance6(state, state.prob, mean_pos, mean_rot)
+            mean_pos, mean_rot = pf.expectation(state, shard)
+            cov = st.covariance6(state, state.prob, mean_pos, mean_rot,
+                                 shard)
             direction, amp = normal_weight_direction(
                 cov[:3, :3], mean_rot, sw.perform_weighting_ratio,
                 sw.max_weight_ratio, sw.max_weight)
@@ -735,26 +758,32 @@ class MCL3DL:
     def _measure_models(self, pos, rot, mask, df, df_beam, like_pts,
                         like_valid, beam_pts, beam_labels, beam_valid,
                         origins, use_beam=None, *, occ=None,
-                        global_mode=False):
+                        global_mode=False, spmd_safe=False):
         """Per-particle measurement likelihoods (measure_func,
         src/mcl_3dl.cpp:402-425): ``(lik_l, qual_l, lik_b, tier_like,
         tier_beam)``; ``use_beam`` overrides ``params.use_beam_model``.
         With ``interp="trilinear"`` tracking samples trilinear (tier 2) and
         a ``global_mode`` step samples nearest, its layout built inside
         the likelihood model; the DDA raycast marches ``occ`` (default the
-        map's)."""
+        map's).  ``spmd_safe`` reads nothing on the host: no grouping, the
+        plain gather, a fixed-trip march (tiers 2/2)."""
         p = self.params
         lp, bp = p.likelihood, p.beam
         use_beam = p.use_beam_model if use_beam is None else use_beam
-        rmat, grouped_like, grouped_beam = self.group(
-            pos, rot, mask, df, df_beam, like_pts, like_valid, beam_pts,
-            beam_labels, beam_valid, origins, use_beam)
+        if spmd_safe:
+            rmat = mq.rotation_matrix(mq.normalize(rot))
+            grouped_like = grouped_beam = None
+        else:
+            rmat, grouped_like, grouped_beam = self.group(
+                pos, rot, mask, df, df_beam, like_pts, like_valid, beam_pts,
+                beam_labels, beam_valid, origins, use_beam)
 
         like_args = (df, pos, rot, like_pts, like_valid, lp.match_dist_min,
                      lp.match_dist_flat, lp.match_weight)
         if lp.interp == "nearest" or global_mode:
             lik_l, qual_l, tier_like = likelihood_measure(
-                *like_args, active=mask, rmat=rmat, grouped=grouped_like)
+                *like_args, active=mask, rmat=rmat, grouped=grouped_like,
+                local_kernel=not spmd_safe)
         else:
             lik_l, qual_l, tier_like = likelihood_measure(
                 *like_args, rmat=rmat, trilinear=True)
@@ -784,7 +813,8 @@ class MCL3DL:
                 occ=occ if occ is not None else self.map.occ,
                 filter_label_max=bp.filter_label_max,
                 ray_angle_half=bp.ray_angle_half,
-                min_dist_thr_sq=p.min_dist_thr_sq, **kw)
+                min_dist_thr_sq=p.min_dist_thr_sq, early_exit=not spmd_safe,
+                **kw)
             tier_beam = 2
         return lik_l, qual_l, lik_b, tier_like, tier_beam
 
@@ -794,10 +824,12 @@ class MCL3DL:
                           is_global_fix: bool, std_warn_thresh,
                           draws: Optional[StepDraws] = None, *,
                           global_mode: bool = False, global_slots=None,
-                          occ=None, normals=None):
+                          occ=None, normals=None, spmd_safe: bool = False,
+                          shard=None):
         """The measurement update (src/mcl_3dl.cpp:363-893).  Returns
         ``(state, f_pos, f_ang, prev_pos, prev_rot, aux)``; ``draws``
-        defaults to the engine generator's.
+        defaults to the engine generator's.  ``is_global_fix`` is a bool or
+        a device bool.
 
         ``global_mode`` (chosen on the host from the particle count) samples
         ``global_slots`` likelihood points (default ``num_points_global``)
@@ -808,28 +840,49 @@ class MCL3DL:
         step), so it does not build the decay and its ``did_resize`` reads
         False.  ``occ`` is the DDA raycast's grid (default the map's),
         ``normals`` [P, 3] the scan's normals for the normal-weighted
-        sampler."""
+        sampler.
+
+        ``spmd_safe`` (the batched fleet) makes no host read.  With a
+        ``shard`` (``shard.Shard``) ``state`` is this rank's slice; the
+        draws are the whole capacity's, made alike on every rank (default
+        the engine generator's), and each rank keeps its slice."""
         p = self.params
-        mask = state.active_mask()
+        mask = state.active_mask(shard_offset(shard))
+        if draws is None and shard is not None:
+            slots = self.slots(global_mode, global_slots)
+            draws = self.draw_step(*self.keeps(cloud, cloud_valid), *slots[:2],
+                                   capacity=shard.capacity)
         (like_pts, like_valid, beam_pts, beam_labels, beam_valid,
          points_not_found, draws) = self.sample_points(
             cloud, cloud_label, cloud_valid, draws, global_mode=global_mode,
             global_slots=global_slots, n_active=state.n_active, state=state,
-            normals=normals)
+            normals=normals, shard=shard)
+        if shard is not None:
+            draws = draws._replace(
+                resample_normals=shard.local(draws.resample_normals),
+                noise_normals=shard.local(draws.noise_normals),
+                expand_normals=shard.local(draws.expand_normals))
         use_beam = self.slots(global_mode, global_slots)[2]
 
         # --- per-particle likelihoods (measure_func, src/mcl_3dl.cpp:402-425)
         lik_l, qual_l, lik_b, tier_like, tier_beam = self._measure_models(
             state.pos, state.rot, mask, df, df_beam, like_pts, like_valid,
             beam_pts, beam_labels, beam_valid, origins, use_beam, occ=occ,
-            global_mode=global_mode)
+            global_mode=global_mode, spmd_safe=spmd_safe)
         odom_error = normal_likelihood(
             torch.linalg.vector_norm(state.odom_err_lin, dim=-1),
             p.odom_err_integ_lin_sigma)
         likelihood = lik_l * lik_b * odom_error
         match_ratio_min = torch.min(torch.where(mask, qual_l, torch.inf))
         match_ratio_max = torch.max(torch.where(mask, qual_l, -torch.inf))
-        state2, entropy = pf.measure(state, likelihood)
+        if shard is not None:
+            # the worst tier any slice paid (JAX's sharded step reports the
+            # same); every rank reaches these collectives in this order
+            tier_like, tier_beam = shard.max(torch.tensor(
+                [tier_like, tier_beam], device=state.device)).tolist()
+            match_ratio_min = shard.min(match_ratio_min)
+            match_ratio_max = shard.max(match_ratio_max)
+        state2, entropy = pf.measure(state, likelihood, shard)
 
         # --- bias toward the previous pose (src/mcl_3dl.cpp:428-450)
         lin_diff = torch.linalg.vector_norm(state2.pos - prev_pos, dim=-1)
@@ -838,9 +891,9 @@ class MCL3DL:
                   * normal_likelihood(ang_diff, p.bias_var_ang) + 1e-6)
         in_global = state2.n_active > p.num_particles
         state2 = pf.bias(state2, torch.where(in_global, 1.0, p_bias))
-        e_pos, e_rot = pf.expectation_biased(state2)
+        e_pos, e_rot = pf.expectation_biased(state2, shard)
         e_rot = mq.normalize(e_rot)
-        e_max = pf.max_particle(state2)
+        e_max = pf.max_particle(state2, shard)
 
         # --- map->odom + jump detection (src/mcl_3dl.cpp:630-661)
         map_rot = mq.mul(e_rot, mq.inv(odom_rot))
@@ -864,9 +917,11 @@ class MCL3DL:
         pub_pos = map_pos_s + mq.rotate(map_rot_s, odom_pos)
 
         # --- covariance + convergence (src/mcl_3dl.cpp:704-751)
-        cov = pf.covariance(state2)
+        cov = pf.covariance(state2, shard)
         thr = [float(x) for x in std_warn_thresh]
-        large_std = (not is_global_fix) & (
+        fix = (is_global_fix if isinstance(is_global_fix, torch.Tensor)
+               else torch.tensor(bool(is_global_fix)))
+        large_std = ~fix & (
             (torch.sqrt(cov[0, 0] + cov[1, 1]) > thr[0])
             | (torch.sqrt(cov[2, 2]) > thr[1])
             | (torch.sqrt(cov[5, 5]) > thr[2]))
@@ -877,7 +932,7 @@ class MCL3DL:
 
         # --- resample + noise redraw (src/mcl_3dl.cpp:809-825)
         state3 = pf.resample(state2, draws.u0, draws.resample_normals,
-                             self._resample_sigma.to(state.device))
+                             self._resample_sigma.to(state.device), shard)
         scale = torch.tensor([p.odom_err_lin_lin, p.odom_err_lin_ang,
                               p.odom_err_ang_lin, p.odom_err_ang_ang],
                              dtype=torch.float32, device=state.device)
@@ -887,14 +942,15 @@ class MCL3DL:
         expanded = match_ratio_max < p.match_ratio_thresh
         state4 = st.where(expanded, pf.add_noise(
             state3, draws.expand_normals,
-            self._expansion_sigma.to(state.device)), state3)
+            self._expansion_sigma.to(state.device), shard), state3)
 
         # --- global-localization decay (src/mcl_3dl.cpp:875-888)
         did_resize = state4.n_active > p.num_particles
         if global_mode:
             reduced = (state.n_active.to(torch.float32) * 0.75).to(torch.int32)
             new_n = torch.clamp(reduced, min=p.num_particles)
-            state4 = st.where(did_resize, pf.resize(state4, new_n), state4)
+            state4 = st.where(did_resize, pf.resize(state4, new_n, shard),
+                              state4)
 
         # all-filtered-out guard: leave the filter untouched (:385-391)
         final_state = st.where(points_not_found, state, state4)

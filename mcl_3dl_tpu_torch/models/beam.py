@@ -47,7 +47,8 @@ def _ray(begin, end):
 
 
 def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
-               map_grid_max: float, hit_tolerance: float, num_steps: int):
+               map_grid_max: float, hit_tolerance: float, num_steps: int,
+               early_exit: bool = True):
     """Sphere-traced kd-tree-style raycast against the distance field:
     ``(collision, collision_pos [..., 3], sin_angle)``.
 
@@ -56,7 +57,9 @@ def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
     can never skip a collision; a probe with ``d <= radius`` is a
     collision as in the reference's fixed march.  The loop stops when
     every ray has hit or passed ``floor((|ray| + tol) / grid) * grid``,
-    checked on the host each iteration, or after ``num_steps``.  The
+    checked on the host each iteration, or after ``num_steps``; with
+    ``early_exit=False`` it always runs ``num_steps`` (no host read, the
+    same result: a finished ray's iterations change nothing).  The
     incidence estimate is the field drop over the entry -> hit span.
     """
     radius = f32(2.0 ** 0.5 * map_grid_max / 2.0)
@@ -76,7 +79,8 @@ def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
     t_entry = torch.full(shape, -1.0, device=dev)
     d_entry = torch.full(shape, f32(df.trunc), device=dev)
     s = 0
-    while s < num_steps and bool(torch.any(~found & (t < max_t))):
+    while s < num_steps and (not early_exit
+                             or bool(torch.any(~found & (t < max_t)))):
         pos = begin + direction * t[..., None]
         d = df.sample_nearest(pos)
         active = (t < max_t) & ~found
@@ -102,7 +106,8 @@ def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
 
 def raycast_occ(occ: OccupancyGrid, begin, end, hit_tolerance: float,
                 filter_label_max: int, num_steps: int,
-                ray_angle_half: float = 0.0, min_dist_thr_sq: float = 0.0):
+                ray_angle_half: float = 0.0, min_dist_thr_sq: float = 0.0,
+                early_exit: bool = True):
     """DDA-style raycast against the occupancy grid: ``(collision,
     collision_pos [..., 3], sin_angle)``, ``sin_angle`` 1 on a hit (the
     reference hardcodes it, raycast_using_dda.h:151-152).
@@ -119,7 +124,7 @@ def raycast_occ(occ: OccupancyGrid, begin, end, hit_tolerance: float,
     is the collision point.  With both thresholds 0 every occupied voxel
     blocks at its first representative.  The loop stops once every ray
     has hit or passed its range, checked on the host each probe, or
-    after ``num_steps``.
+    after ``num_steps`` (always, with ``early_exit=False``).
     """
     step = f32(occ.cell * 0.5)
     length, direction = _ray(begin, end)
@@ -134,7 +139,8 @@ def raycast_occ(occ: OccupancyGrid, begin, end, hit_tolerance: float,
     found = torch.zeros(shape, dtype=torch.bool, device=dev)
     cpos = torch.zeros(shape + (3,), device=dev)
     s = 0
-    while s < num_steps and bool(torch.any(~found & (f32((s + 1) * step) < max_t))):
+    while s < num_steps and (not early_exit or bool(
+            torch.any(~found & (f32((s + 1) * step) < max_t)))):
         t = f32((s + 1) * step)      # one f32 product, as in JAX
         pos = begin + direction * t
         occ_hit, label, rep_pos = occ.lookup(pos)        # rep_pos [..., R, 3]
@@ -316,11 +322,12 @@ def beam_measure(df_beam: DistanceField, pos, rot, points, origin_idx,
                  beam_likelihood_min, num_points_default, sin_total_ref,
                  add_penalty_short_only_mode, num_steps, use_dda=False,
                  occ: OccupancyGrid = None, filter_label_max=0xFFFFFFFF,
-                 ray_angle_half=0.0, min_dist_thr_sq=0.0):
+                 ray_angle_half=0.0, min_dist_thr_sq=0.0, early_exit=True):
     """Tier 2: ``(likelihood [N], status [N, B])`` on every (particle,
     beam) through the sphere trace ``raycast_df``, or with ``use_dda``
     through ``raycast_occ`` over ``occ`` (which reads the label and
-    perpendicular-distance parameters)."""
+    perpendicular-distance parameters).  ``early_exit=False`` marches a
+    fixed trip count with no host read (the batched fleet)."""
     rmat = mq.rotation_matrix(mq.normalize(rot))
     ends = torch.einsum("bj,nij->nbi", points, rmat) + pos[:, None, :]
     sensor_org = origins[origin_idx]
@@ -328,11 +335,12 @@ def beam_measure(df_beam: DistanceField, pos, rot, points, origin_idx,
     if use_dda:
         collision, cpos, sin_ang = raycast_occ(
             occ, begins, ends, hit_range, filter_label_max, num_steps,
-            ray_angle_half=ray_angle_half, min_dist_thr_sq=min_dist_thr_sq)
+            ray_angle_half=ray_angle_half, min_dist_thr_sq=min_dist_thr_sq,
+            early_exit=early_exit)
     else:
         collision, cpos, sin_ang = raycast_df(
             df_beam, begins, ends, map_grid_min, map_grid_max, hit_range,
-            num_steps)
+            num_steps, early_exit)
     dist_sq = torch.sum((ends - cpos) ** 2, dim=-1)
     graze = sin_ang <= f32(sin_total_ref)
     status = torch.where(

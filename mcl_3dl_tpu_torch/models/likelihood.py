@@ -154,7 +154,7 @@ def _gather_score(df, iq, valid, match_dist_min, match_dist_flat,
 def likelihood_measure(df: DistanceField, pos, rot, points, valid,
                        match_dist_min: float, match_dist_flat: float,
                        match_weight: float, *, active=None, rmat=None,
-                       grouped=None, trilinear=False):
+                       grouped=None, trilinear=False, local_kernel=True):
     """``(likelihood [N], quality [N], tier)`` with nearest-cell sampling,
     or with ``trilinear`` the interpolated field through the plain gather
     (tier 2).
@@ -163,12 +163,13 @@ def likelihood_measure(df: DistanceField, pos, rot, points, valid,
     shares one sorted layout with the beam model; ``fits`` is a host bool
     and ``layout`` is ``None`` when it is False.  Built here when omitted
     and eligible (N a tile multiple).  ``active`` masks inactive capacity
-    slots out of the bin envelopes.
+    slots out of the bin envelopes.  ``local_kernel=False`` takes the plain
+    gather with no host read (tier 2; the batched fleet).
     """
     n = pos.shape[0]
     kw = dict(match_dist_min=match_dist_min, match_dist_flat=match_dist_flat,
               match_weight=match_weight)
-    use_local = (not trilinear and n % 128 == 0 and n >= 128
+    use_local = (local_kernel and not trilinear and n % 128 == 0 and n >= 128
                  and float(df.trunc) > float(match_dist_min))
     if rmat is None:
         rmat = mq.rotation_matrix(mq.normalize(rot))

@@ -11,9 +11,13 @@ the bin's coefficients; particles outside their envelope go to the last
 bin and are rescored exactly by the ``overflow_*`` path, so every
 particle's result equals the plain nearest-cell lookup.
 
-This module is the torch restatement of mcl_3dl_tpu/ops/grouped.py; the
-bin grid and skip granularity are module constants with that package's
-defaults.  The caller reads the ``fits`` flags on the host and only then
+This module is the torch restatement of mcl_3dl_tpu/ops/grouped.py.  The
+bin grid is read once, at import, from ``MCL_G_YAW``, ``MCL_G_PITCH`` and
+``MCL_G_ROLL`` (defaults 24, 2, 2: sized for the 1M flagship; a fleet at
+~10k particles a robot runs 6x1x1, since the per-(point, bin) table
+extraction and the per-bin tile padding do not shrink with the particle
+count), with that package's names, defaults and validation; the skip
+granularity is a module constant.  The caller reads the ``fits`` flags on the host and only then
 builds the layout (no empty layout is ever needed).
 
 Kernel wrappers take the kernel for CUDA tensors and the plain version
@@ -23,6 +27,7 @@ sequential accumulation order) for CPU tensors.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -30,7 +35,14 @@ import torch
 from mcl_3dl_tpu_torch.math import f32
 from mcl_3dl_tpu_torch.ops import build
 
-G_YAW, G_PITCH, G_ROLL = 24, 2, 2
+G_YAW = int(os.environ.get("MCL_G_YAW", "24"))
+G_PITCH = int(os.environ.get("MCL_G_PITCH", "2"))
+G_ROLL = int(os.environ.get("MCL_G_ROLL", "2"))
+if G_YAW < 1 or G_PITCH not in (1, 2) or G_ROLL not in (1, 2):
+    # pitch/roll binning is a binary above/below-mean split
+    raise ValueError(
+        f"MCL_G_YAW must be >= 1 and MCL_G_PITCH/MCL_G_ROLL in (1, 2); "
+        f"got {G_YAW}x{G_PITCH}x{G_ROLL}")
 G_SPLIT = G_YAW * G_PITCH * G_ROLL
 G_GROUPS = G_SPLIT + 1         # last bin: envelope outliers + inactive slots
 TILE = 1024
@@ -121,10 +133,13 @@ def group_stats(pos, rot_mat, rot, weights3, cell, origin3, active) -> GroupStat
     yspan = torch.clamp(yhi - ylo, min=1e-6)
     yb = torch.clamp(((yaw - ylo) / yspan * G_YAW).to(torch.int32), 0, G_YAW - 1)
     nact = torch.clamp(torch.sum(af), min=1.0)
-    pmid = torch.sum(torch.where(active, pitch, 0.0)) / nact
-    pb = (pitch > pmid).to(torch.int32)
-    rmid = torch.sum(torch.where(active, roll, 0.0)) / nact
-    rb = (roll > rmid).to(torch.int32)
+    pb = rb = torch.zeros_like(yb)
+    if G_PITCH > 1:
+        pmid = torch.sum(torch.where(active, pitch, 0.0)) / nact
+        pb = (pitch > pmid).to(torch.int32)
+    if G_ROLL > 1:
+        rmid = torch.sum(torch.where(active, roll, 0.0)) / nact
+        rb = (roll > rmid).to(torch.int32)
     g0 = ((yb * G_PITCH + pb) * G_ROLL + rb).to(torch.int64)    # [N]
 
     a9 = (rot_mat * w[:, None]).reshape(n, 9) * inv_cell

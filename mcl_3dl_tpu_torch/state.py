@@ -8,7 +8,9 @@ count can change without reallocating.  ``prob`` and ``prob_bias``
 mirror ``pf::Particle`` (pf.h:89-110).
 
 Random draws are inputs: ``init_*`` take their standard normals
-``[capacity, 6]`` from the caller.
+``[capacity, 6]`` from the caller.  A state may be one rank's slice of a
+particle split: its mask then takes the slice's global ``offset``, and
+the weighted moments reduce over every slice through a ``shard.Shard``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from mcl_3dl_tpu_torch.math import quat as mq
+from mcl_3dl_tpu_torch.shard import offset as _offset
 
 
 class ParticleState(NamedTuple):
@@ -42,8 +45,10 @@ class ParticleState(NamedTuple):
     def device(self):
         return self.pos.device
 
-    def active_mask(self) -> torch.Tensor:
-        return torch.arange(self.capacity, dtype=torch.int32,
+    def active_mask(self, offset: int = 0) -> torch.Tensor:
+        """Slots below ``n_active``; ``offset`` is the global slot of the
+        first row (a slice of a particle split)."""
+        return torch.arange(offset, offset + self.capacity, dtype=torch.int32,
                             device=self.device) < self.n_active
 
 
@@ -130,13 +135,14 @@ def init_multivariate(normals6, capacity: int, n_active, mean_pos, mean_rpy,
                          torch.as_tensor(mean_rpy, **f), n, dev)
 
 
-def weighted_mean(state: ParticleState, weights):
+def weighted_mean(state: ParticleState, weights, shard=None):
     """Quaternion-safe weighted mean -> (mean_pos[3], mean_quat[4]) through
     the averaged front=(1,0,0) and up=(0,0,1) vectors
-    (``ParticleWeightedMeanQuat``, state_6dof.h:316-355)."""
-    w = weights * state.active_mask()
+    (``ParticleWeightedMeanQuat``, state_6dof.h:316-355); with a ``shard``
+    the four sums are over every slice."""
+    w = weights * state.active_mask(_offset(shard))
     p_sum = torch.sum(w)
-    mean_pos = torch.sum(state.pos * w[:, None], dim=0) / p_sum
+    pos_sum = torch.sum(state.pos * w[:, None], dim=0)
     x, y, z, qw = state.rot.unbind(-1)
     front = torch.stack(
         [1.0 - 2.0 * (y * y + z * z), 2.0 * (x * y + qw * z),
@@ -146,7 +152,10 @@ def weighted_mean(state: ParticleState, weights):
          1.0 - 2.0 * (x * x + y * y)], dim=-1)
     front_sum = torch.sum(front * w[:, None], dim=0)
     up_sum = torch.sum(up * w[:, None], dim=0)
-    return mean_pos, mq.from_frame(front_sum, up_sum)
+    if shard is not None:
+        p_sum, pos_sum, front_sum, up_sum = shard.sum(p_sum, pos_sum,
+                                                      front_sum, up_sum)
+    return pos_sum / p_sum, mq.from_frame(front_sum, up_sum)
 
 
 def wrap_angle(a):
@@ -154,13 +163,18 @@ def wrap_angle(a):
     return a - 2.0 * math.pi * torch.round(a / (2.0 * math.pi))
 
 
-def covariance6(state: ParticleState, weights, mean_pos, mean_rot):
+def covariance6(state: ParticleState, weights, mean_pos, mean_rot,
+                shard=None):
     """Weighted 6x6 covariance over (xyz, rpy) with angle wrapping over
-    every particle (pf.h:304-360, state_6dof.h:162-184)."""
-    w = weights * state.active_mask()
+    every particle (pf.h:304-360, state_6dof.h:162-184); with a ``shard``
+    over every slice."""
+    w = weights * state.active_mask(_offset(shard))
     p_sum = torch.sum(w)
     mean_rpy = mq.to_rpy(mean_rot)
     d_pos = state.pos - mean_pos
     d_rpy = wrap_angle(mq.to_rpy(state.rot) - mean_rpy)
     d = torch.cat([d_pos, d_rpy], dim=-1)                     # [C, 6]
-    return (d * w[:, None]).T @ d / p_sum
+    moment = (d * w[:, None]).T @ d
+    if shard is not None:
+        p_sum, moment = shard.sum(p_sum, moment)
+    return moment / p_sum

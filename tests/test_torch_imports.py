@@ -91,11 +91,14 @@ print("IMPORTED:" + mod.__name__)
     "mcl_3dl_tpu_torch.io.pcd", "mcl_3dl_tpu_torch.checkpoint",
     "mcl_3dl_tpu_torch.profiling", "mcl_3dl_tpu_torch.tools.run_replay",
     "mcl_3dl_tpu_torch.tools.all_options",
+    "mcl_3dl_tpu_torch.parallel", "mcl_3dl_tpu_torch.parallel.sharding",
+    "mcl_3dl_tpu_torch.shard", "mcl_3dl_tpu_torch.tools.fleet",
+    "mcl_3dl_tpu_torch.tools.sharded",
 ])
 def test_module_imports_with_jax_blocked(module):
-    """The global-mode, correlative, replay and Tier-3 modules, and this
-    slice's options and services, import with JAX and the JAX package
-    made unimportable."""
+    """The global-mode, correlative, replay and Tier-3 modules, the options
+    and services, and the fleet and split modules import with JAX and the
+    JAX package made unimportable."""
     out = subprocess.run([sys.executable, "-c", _BLOCKED, module], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
