@@ -7,7 +7,8 @@ Phases (one line each, the card's name and power limit beside every
 time):
 
 1. device facts: GPU, power limit, CUDA runtime, nvcc, triton;
-2. build of the CUDA kernels with nvcc (first use), with its seconds;
+2. build of the CUDA kernels with nvcc and of their torch operators with
+   the host compiler (first use), with the seconds of each;
 3. the main path (``tools/grouped_pairs.engine`` and ``drive``):
    ``MCL3DL(Params(num_particles=1<<20), device="cuda")`` on the
    flagship room world, stationary odometry and scans through
@@ -91,6 +92,10 @@ time):
    on phase 4's K1-K3 rows as ``split_launches`` (the same kernels at the
    same shapes, timed once).
 
+Phase 6 ends with where a lone call of G3 and G4 spends its ``time_ms``
+(the kernel alone on an idle card, and what the host adds before it
+starts).
+
 Times are medians of CUDA-event timings (``tools.time_ms``); bounds are
 ``tools.bound``: bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
 whichever is longer.
@@ -152,6 +157,19 @@ def profile_step(eng, scan, origin, card):
     print(f"phase 5 profile: step wall {wall * 1e3:.2f} ms, device busy "
           f"{dev_us / 1e3:.2f} ms ({100.0 * dev_us / 1e3 / (wall * 1e3):.1f}%),"
           f" {len(events)} distinct ops {card}", flush=True)
+
+
+def lone_calls(where):
+    """Phase 6's G3 and G4 at the JAX script's size: where a lone call's
+    ``time_ms`` goes (the kernel alone on an idle card, and what the host
+    adds before it starts; ``gather_pairs.lone_calls``)."""
+    import torch
+    from mcl_3dl_tpu_torch.tools import exp_gather, gather_pairs
+
+    rows = [e for e in exp_gather.lookups(torch.device("cuda"), risky=True)
+            if e.tag in ("G3", "G4")]
+    print("phase 6 lone calls:", flush=True)
+    gather_pairs.lone_calls(rows, {}, where, tags=("G3", "G4"))
 
 
 def report(results, card, kname, src, replaces, kernel, plain, bytes_, ops,
@@ -861,9 +879,13 @@ def main() -> int:
     # ---- phase 2: build
     t0 = time.perf_counter()
     build.build(verbose=True)
+    secs = dict(build.seconds)
     build.library()
-    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc, "
-          f"{len(build.SOURCES)} sources in parallel + link)", flush=True)
+    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{secs.get('nvcc', 0.0):.2f} s for {len(build.SOURCES)} sources, "
+          f"host compiler {secs.get('host', 0.0):.2f} s for the binding "
+          f"{build.BINDING}, in parallel; link {secs.get('link', 0.0):.2f} s;"
+          f" operators torch.ops.{build.namespace()})", flush=True)
 
     # ---- phase 3: the main path through the public entry points
     eng = gp.engine()
@@ -957,6 +979,7 @@ def main() -> int:
 
     # ---- phase 6: the lookup microbenchmarks at the JAX scripts' sizes
     results += lookup_phase(card)
+    lone_calls(smi)
 
     # ---- phase 7: global recovery; K1 and K3 at its shapes
     global_phase(card, report_here)

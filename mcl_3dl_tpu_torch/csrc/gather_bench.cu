@@ -32,7 +32,9 @@
 //     entry takes the vector path when they are aligned and a scalar one
 //     when they are not.
 //   * A thread of (b) and the transposed (c) starts its int4 index loads
-//     (8 in G3, G6 and G8, 1 in G9) before it uses any, a thread of (d)
+//     (8 in G6 and G8, 2 in G3, 1 in G9) before it uses any, a thread of
+//     G3 its 2 and of G4 its 4 before its share of the table copy, a
+//     thread of (d)
 //     loads its next group of rows and lanes before it looks up the
 //     current one, and the table copies of (a), (b), (d) and the
 //     transposed (c) start BATCH 16-byte loads before their stores.  With
@@ -41,10 +43,16 @@
 //     the card's bandwidth.
 //   * (a) stages the block's 16 table rows in shared memory with 16-byte
 //     loads, so each table byte crosses from device memory once, and
-//     gathers from there.  At W 512 the whole 256 MiB table is read,
+//     gathers from there.  G4's u8 rows are 128 bytes, so its blocks take
+//     32 rows (MCL_U8_ROWS; 64 and 128 measured slower), eight threads a
+//     row, each thread on four consecutive int4 groups whose 16 u8
+//     outputs leave as one 16-byte store (16 rows a block and one int4
+//     group at a time kept few bytes in flight and stored 4 bytes at a
+//     time; index rows and table rows by two bulk copies on an mbarrier
+//     measured no faster).  At W 512 the whole 256 MiB table is read,
 //     though the queries touch a quarter of it: a 128-query row touches
 //     nearly every 32-byte sector of its 2 KB table row anyway.
-//   * (b)'s shared form (G3, G6), (d) and the transposed (c) share one
+//   * (b)'s shared form (G6), (d) and the transposed (c) share one
 //     small table among all blocks and copy it into shared memory once per
 //     block: up to 72 KB, above the static 48 KB, so the kernel's dynamic
 //     shared-memory limit is raised first.  G6 and G10 run one block of
@@ -55,14 +63,24 @@
 //     of 256 threads an SM (396 copies), one of 1024 and two of 512, this
 //     shape was the fastest for both.  G6's blocks walk rounds of 768 * 8
 //     int4 groups; equal rounds (no part-full last round) and one
-//     contiguous share a block measured no faster.  G3's 4 KB table costs
-//     nothing to copy, so it keeps blocks of 256 threads, as many as fit,
-//     and loads after the copy (early loads would hold 8 int4 registers
-//     through it and cut the resident blocks).  G9 is G6's function with
+//     contiguous share a block measured no faster.  G9 is G6's function with
 //     the table read through L1/L2 by __ldg: with no table to copy it takes
 //     (c)'s direct form, one int4 group a thread on a grid sized to the
 //     work, so the pair measures each memory in its fastest schedule.  The
 //     transposed (c) stays a grid-stride loop over all resident blocks.
+//   * G3 (a 4 KB table) is all stream: 4 bytes of index in and 4 of
+//     output out a lookup.  It takes (b)'s direct form: one round a block
+//     of 256 threads on a grid sized to the work, each thread's 2 int4
+//     index groups (MCL_G3_GROUPS; 4 and 8 measured slower) loaded before
+//     the block copies the table (16 bytes a thread), so every resident
+//     block has its indices in flight at once and no block waits out a
+//     ragged last round.  It runs at the speed of a plain device-to-device
+//     copy of the same bytes (2.9 TB/s on an H100 SXM at 700 W).
+//     A persistent grid-stride form (loads after the copy) measured 7-8%
+//     slower, and so did a ring of bulk-copied index tiles on mbarriers
+//     (one block an SM of 512 consumers and a producer warp, 4 stages of
+//     32 KB, with 16-byte or bulk stores), which stays as a variant
+//     (MCL_G3_RING; gather_pairs.py --variants g3_ring g3_ring_bulk).
 //   * Shared-memory banks: in (a), (b) and (d) the 32 lanes of a read
 //     take random entries, so they fall on random banks and a read costs
 //     as many passes as the most distinct words on one bank (3.5 for 32
@@ -101,9 +119,9 @@
 // size and kept (resident_blocks), so a launch is cudaGetDevice, the
 // launch and cudaGetLastError.
 //
-// The block shapes of G6 and G10 are macros, so that a copy of this file
-// with other definitions in front builds a variant of them
-// (mcl_3dl_tpu_torch/tools/gather_pairs.py --variants).
+// The block shapes of G3, G4, G6 and G10 and G3's ring are macros, so
+// that a copy of this file with other definitions in front builds a
+// variant of them (mcl_3dl_tpu_torch/tools/gather_pairs.py --variants).
 //
 // Index arithmetic wraps like the JAX int32 (and torch int32) arithmetic:
 // (idx + off) is computed modulo 2^32 and reduced modulo the power-of-two
@@ -133,6 +151,15 @@
 #ifndef MCL_ROWSEL_PER_SM
 #define MCL_ROWSEL_PER_SM 1     // most blocks of (d) on an SM
 #endif
+#ifndef MCL_G3_GROUPS
+#define MCL_G3_GROUPS 2         // int4 index groups a thread of G3
+#endif
+#ifndef MCL_U8_ROWS
+#define MCL_U8_ROWS 32          // table rows a block of G4
+#endif
+#ifndef MCL_G3_RING
+#define MCL_G3_RING 0           // G3 through the ring: 1 16-byte stores, 2 bulk
+#endif
 
 namespace {
 
@@ -149,9 +176,10 @@ __device__ __forceinline__ int wrap(int q, int off, int mask) {
   return (int)(((unsigned)q + (unsigned)off) & (unsigned)mask);
 }
 
-// Copy `bytes` (a multiple of 16) from device memory to shared memory.  A
+// Copy `bytes` from device memory (16-byte aligned) to shared memory.  A
 // thread issues BATCH 16-byte loads before it stores any of them, so it
-// waits on one memory latency per BATCH loads, not per load.
+// waits on one memory latency per BATCH loads, not per load; a tail of
+// less than 16 bytes goes byte by byte.
 __device__ __forceinline__ void stage(void* dst, const void* src, int bytes) {
   const uint4* s = static_cast<const uint4*>(src);
   uint4* d = static_cast<uint4*>(dst);
@@ -165,6 +193,9 @@ __device__ __forceinline__ void stage(void* dst, const void* src, int bytes) {
     for (int k = 0; k < BATCH; ++k)
       if (v0 + k * (int)blockDim.x < n) d[v0 + k * blockDim.x] = r[k];
   }
+  for (int b = n * 16 + (int)threadIdx.x; b < bytes; b += blockDim.x)
+    static_cast<unsigned char*>(dst)[b] =
+        static_cast<const unsigned char*>(src)[b];
 }
 
 // Grid-stride loop over the int4 index groups in rounds of T * B: in each
@@ -202,12 +233,7 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c,
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
-__device__ __forceinline__ void store4(uint8_t* p, uint8_t a, uint8_t b,
-                                       uint8_t c, uint8_t d) {
-  *reinterpret_cast<uchar4*>(p) = make_uchar4(a, b, c, d);
-}
-
-// ---- (a) row gather: G1, G2, G4
+// ---- (a) row gather: G1, G2
 template <typename T, int W>
 __global__ void __launch_bounds__(THREADS)
 row_gather_kernel(const T* __restrict__ tab, const int* __restrict__ idx,
@@ -227,15 +253,64 @@ row_gather_kernel(const T* __restrict__ tab, const int* __restrict__ idx,
   }
 }
 
+// ---- (a) for u8 tables of 128 lanes: G4
+// Eight threads a row, each on four consecutive int4 index groups (16
+// lanes), ROWS rows a block.  A thread issues all its index loads, then
+// its share of the block's table copy, before it waits on any of them;
+// it packs its 16 u8 lookups into one 16-byte store.
+template <int ROWS>
+__global__ void __launch_bounds__(THREADS)
+u8_row_gather_kernel(const uint8_t* __restrict__ tab,
+                     const int* __restrict__ idx, uint8_t* __restrict__ out,
+                     int rows, int off) {
+  constexpr int PASS = THREADS / 8;   // rows a pass of the block
+  constexpr int P = ROWS / PASS;      // passes
+  static_assert(ROWS % PASS == 0, "MCL_U8_ROWS must be a multiple of 32");
+  __shared__ __align__(16) uint8_t rows_s[ROWS * LANES];
+  const int r0 = blockIdx.x * ROWS;
+  const int nr = min(ROWS, rows - r0);
+  const int sub = threadIdx.x & 7, rr = threadIdx.x >> 3;
+  int4 q[P][4];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int r = rr + p * PASS;
+    if (r < nr) {
+      const int4* q4 = reinterpret_cast<const int4*>(
+                           idx + (size_t)(r0 + r) * LANES) + 4 * sub;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) q[p][k] = __ldg(q4 + k);
+    }
+  }
+  stage(rows_s, tab + (size_t)r0 * LANES, nr * LANES);
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int r = rr + p * PASS;
+    if (r >= nr) continue;
+    const uint8_t* row = rows_s + r * LANES;
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int4 g = q[p][k];
+      w[k] = (uint32_t)row[wrap(g.x, off, LANES - 1)] |
+             (uint32_t)row[wrap(g.y, off, LANES - 1)] << 8 |
+             (uint32_t)row[wrap(g.z, off, LANES - 1)] << 16 |
+             (uint32_t)row[wrap(g.w, off, LANES - 1)] << 24;
+    }
+    *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * LANES + 16 * sub) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // ---- (b) flat gather: G3, G6 (table in shared memory), G9 (through L2)
 template <bool SHARED>
 __device__ __forceinline__ float flat_load(const float* t, int i) {
   return SHARED ? t[i] : __ldg(t + i);
 }
 
-// G3 and G6 copy the table into shared memory first (G6 under its first
-// index loads), G9 reads it through L1/L2; G9 runs one round a block (a
-// grid sized to the work), G3 and G6 as many as their resident blocks need.
+// G3 and G6 copy the table into shared memory under their first index
+// loads, G9 reads it through L1/L2; G3 and G9 run one round a block (a
+// grid sized to the work), G6 as many as its resident blocks need.
 template <bool SHARED, int T, int B, bool EARLY>
 __global__ void __launch_bounds__(T)
 flat_gather_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
@@ -258,6 +333,145 @@ flat_gather_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
                flat_load<SHARED>(t, wrap(q.w, off, m)));
       });
 }
+
+#if MCL_G3_RING
+// ---- (b) G3 through a ring of bulk-copied index tiles (a variant kept to
+// re-measure the design; the direct form above is faster)
+// One block an SM: RING_THREADS consumers and a producer warp.  Lane 0 of
+// the producer copies the block's index tiles (tile b, b + gridDim.x, ...)
+// into a ring of RING_STAGES stages of shared memory, each by one
+// cp.async.bulk that completes on the stage's `full` mbarrier, and waits on
+// the stage's `empty` mbarrier before it fills a stage again.  The
+// consumers copy the table while the first tiles are in flight, then look
+// up each tile's indices from shared memory.  STORE 1: each consumer
+// writes its four outputs as one 16-byte store and arrives on `empty`;
+// STORE 2: the outputs overwrite their indices in the stage and one
+// consumer writes the tile out by a bulk copy, waits until the copy has
+// read the stage, and arrives.  A last tile shorter than RING_GROUPS is
+// copied at its own length.
+constexpr int RING_THREADS = 512;   // consumer threads a block
+constexpr int RING_STAGES = 4;
+constexpr int RING_GROUPS = 2048;   // int4 index groups a stage (32 KB)
+constexpr int RING_HEAD = 128;      // bytes in front of the stages: barriers
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(smem_u32(b))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of barrier `b` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+}
+
+template <int STORE>
+__global__ void __launch_bounds__(RING_THREADS + 32)
+ring_gather_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
+                   float* __restrict__ out, int n_tab, int n_groups, int off) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + RING_STAGES;
+  int4* ring = reinterpret_cast<int4*>(smem + RING_HEAD);
+  float* t = reinterpret_cast<float*>(ring + RING_STAGES * RING_GROUPS);
+  const int n_tiles = (n_groups + RING_GROUPS - 1) / RING_GROUPS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, STORE == 1 ? RING_THREADS : 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= RING_THREADS) {  // the producer warp
+    if (threadIdx.x == RING_THREADS) {
+      int k = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++k) {
+        const int s = k % RING_STAGES;
+        if (k >= RING_STAGES) mbar_wait(empty + s, (k / RING_STAGES - 1) & 1);
+        const int g0 = tile * RING_GROUPS;
+        const unsigned bytes = 16u * (unsigned)min(RING_GROUPS, n_groups - g0);
+        mbar_expect_tx(full + s, bytes);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];" ::"r"(smem_u32(ring + s * RING_GROUPS)),
+            "l"(idx + 4 * (size_t)g0), "r"(bytes), "r"(smem_u32(full + s))
+            : "memory");
+      }
+    }
+    return;
+  }
+  // the table, while the first tiles are in flight (consumers only)
+  const int nv = n_tab / 4;
+  for (int v = threadIdx.x; v < nv; v += RING_THREADS)
+    reinterpret_cast<float4*>(t)[v] =
+        __ldg(reinterpret_cast<const float4*>(tab) + v);
+  for (int i = 4 * nv + threadIdx.x; i < n_tab; i += RING_THREADS)
+    t[i] = __ldg(tab + i);
+  asm volatile("bar.sync 1, %0;" ::"n"(RING_THREADS) : "memory");
+  const int m = n_tab - 1;
+  int k = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++k) {
+    const int s = k % RING_STAGES;
+    mbar_wait(full + s, (k / RING_STAGES) & 1);
+    const int g0 = tile * RING_GROUPS;
+    const int n = min(RING_GROUPS, n_groups - g0);
+    int4* q4 = ring + s * RING_GROUPS;
+    for (int j = threadIdx.x; j < n; j += RING_THREADS) {
+      const int4 q = q4[j];
+      const float4 v = make_float4(t[wrap(q.x, off, m)], t[wrap(q.y, off, m)],
+                                   t[wrap(q.z, off, m)], t[wrap(q.w, off, m)]);
+      if (STORE == 1)
+        *reinterpret_cast<float4*>(out + 4 * (size_t)(g0 + j)) = v;
+      else
+        reinterpret_cast<float4*>(q4)[j] = v;
+    }
+    if (STORE == 1) {
+      mbar_arrive(empty + s);
+      continue;
+    }
+    // the stage's generic writes, visible to the bulk copy's async proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"n"(RING_THREADS) : "memory");
+    if (threadIdx.x == 0) {
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+              out + 4 * (size_t)g0),
+          "r"(smem_u32(q4)), "r"(16u * (unsigned)n)
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      mbar_arrive(empty + s);
+    }
+  }
+}
+#endif  // MCL_G3_RING
 
 // ---- (c) column gather: G5 (MODE 0), G7 (MODE 1)
 template <int MODE>
@@ -464,14 +678,22 @@ cudaError_t grid_for(const void* fn, int threads, int smem, int per_sm_max,
 extern "C" int mcl_row_gather(const void* tab, const int* idx, void* out,
                               int rows, int width, int elem_bytes, int off,
                               cudaStream_t stream) {
+  if (rows == 0) return (int)cudaSuccess;
   const int blocks = (rows + RG_ROWS - 1) / RG_ROWS;
 #define MCL_ROW_GATHER(T, W)                                              \
   row_gather_kernel<T, W><<<blocks, THREADS, 0, stream>>>(                \
       static_cast<const T*>(tab), idx, static_cast<T*>(out), rows, off)
   if (elem_bytes == 4 && width == 128) MCL_ROW_GATHER(float, 128);
   else if (elem_bytes == 4 && width == 512) MCL_ROW_GATHER(float, 512);
-  else if (elem_bytes == 1 && width == 128) MCL_ROW_GATHER(uint8_t, 128);
-  else return (int)cudaErrorInvalidValue;
+  else if (elem_bytes == 1 && width == 128) {
+    const int u8_blocks = (rows + MCL_U8_ROWS - 1) / MCL_U8_ROWS;
+    const uint8_t* t8 = static_cast<const uint8_t*>(tab);
+    uint8_t* o8 = static_cast<uint8_t*>(out);
+    u8_row_gather_kernel<MCL_U8_ROWS>
+        <<<u8_blocks, THREADS, 0, stream>>>(t8, idx, o8, rows, off);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
 #undef MCL_ROW_GATHER
   return (int)cudaGetLastError();
 }
@@ -491,15 +713,24 @@ extern "C" int mcl_flat_gather(const float* tab, const int* idx, float* out,
   int blocks = 0;
   cudaError_t e;
   if (smem <= SMALL_TAB) {
-    // G3: a table too small to repay one block an SM; as many blocks of
-    // THREADS as fit, BATCH groups a thread
-    constexpr int B = BATCH;
-    e = grid_for((const void*)flat_gather_kernel<true, THREADS, B, false>,
-                 THREADS, smem, INT_MAX, (n + THREADS * B - 1) / (THREADS * B),
-                 &blocks);
+#if MCL_G3_RING
+    const int rsmem = RING_HEAD + RING_STAGES * RING_GROUPS * 16 +
+                      ((smem + 15) & ~15);
+    e = grid_for((const void*)ring_gather_kernel<MCL_G3_RING>,
+                 RING_THREADS + 32, rsmem, 1,
+                 (n + RING_GROUPS - 1) / RING_GROUPS, &blocks);
     if (e != cudaSuccess) return (int)e;
-    flat_gather_kernel<true, THREADS, B, false>
-        <<<blocks, THREADS, smem, stream>>>(tab, idx, out, n_tab, n, off);
+    ring_gather_kernel<MCL_G3_RING><<<blocks, RING_THREADS + 32, rsmem,
+                                      stream>>>(tab, idx, out, n_tab, n, off);
+#else
+    // G3: a table too small to repay a persistent block its copy; one
+    // round a block on a grid sized to the work, each thread's index
+    // loads issued before the block copies the table
+    constexpr int B = MCL_G3_GROUPS;
+    flat_gather_kernel<true, THREADS, B, true>
+        <<<(n + THREADS * B - 1) / (THREADS * B), THREADS, smem, stream>>>(
+            tab, idx, out, n_tab, n, off);
+#endif
   } else {
     constexpr int T = MCL_FLAT_THREADS, B = BATCH;
     e = grid_for((const void*)flat_gather_kernel<true, T, B, true>, T, smem,

@@ -1,10 +1,17 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``) and their
+binding to PyTorch (``csrc/ops.cpp``).
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into an object, all
-in parallel, and the objects are linked into one shared library with a
-plain C interface, loaded with ``ctypes``.  The library lives under
+Each kernel source is compiled by ``nvcc`` for ``sm_90a`` into an object,
+and the binding by the host C++ compiler against torch's headers, all in
+parallel.  The objects are linked into one shared library against torch's
+libraries and loaded with ``torch.ops.load_library``: its operators (one
+per C entry point of the kernels) are registered with torch's dispatcher
+under the namespace ``mcl3dl_<hash>``, so two builds of the package can be
+loaded into one process.  The library lives under
 ``build/torch_kernels/<hash>/`` at the repository root, keyed by a hash of
-the sources and flags, and is built at first use.
+the sources, the flags and torch's version, and is built at first use.
+It needs ``nvcc``, a host C++ compiler and a CUDA build of torch; without
+them, or when the library does not load, ``build``/``library`` raise.
 
 ``-fmad=false`` keeps every ``a*b + c`` unfused, so the kernels evaluate
 the affine query and the score with the same roundings as the plain
@@ -13,12 +20,13 @@ PyTorch versions (eager torch never contracts across operations).
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -27,131 +35,146 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("grouped.cu", "local_gather.cu", "gather_bench.cu")
+BINDING = "ops.cpp"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
+# the standard torch's own extension builder compiles its headers with
+HOST_FLAGS = ("-std=c++20", "-O2", "-fPIC")
+TORCH_LIBS = ("torch", "torch_cpu", "torch_cuda", "c10", "c10_cuda")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points: argument types after the leading pointers, per kernel
-_SIGNATURES = {
-    "mcl_like_score": [_P] * 8 + [_I] * 4 + [_F] * 6 + [_P],
-    "mcl_beam_pen": [_P] * 8 + [_I] * 6 + [_F] * 9 + [_P],
-    "mcl_local_score": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P],
-    "mcl_row_gather": [_P] * 3 + [_I] * 4 + [_P],
-    "mcl_flat_gather": [_P] * 3 + [_I] * 4 + [_P],
-    "mcl_col_gather": [_P] * 3 + [_I] * 4 + [_P],
-    "mcl_rowsel_accumulate": [_P] * 4 + [_I] * 4 + [_P],
-}
+_lib = None          # the loaded namespace, set by ``library``
+_ops = {}            # operator name -> its OpOverload, filled by ``op``
+seconds = {}         # the last build's wall seconds: "nvcc", "host", "link"
 
-_lib = None
-_fns = {}       # entry name -> bound ctypes function, filled by ``library``
+
+def _find(tool: str, default: str, what: str) -> str:
+    found = shutil.which(tool)
+    if found:
+        return found
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(f"{tool} not found: {what}")
 
 
 def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return _find("nvcc", "/usr/local/cuda/bin/nvcc",
+                 "the CUDA kernels cannot be built")
+
+
+def _host_cxx() -> str:
+    return _find("g++", "/usr/bin/g++", "the kernels' binding cannot be built")
+
+
+def _abi() -> int:
+    return int(torch._C._GLIBCXX_USE_CXX11_ABI)
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + HOST_FLAGS + TORCH_LIBS).encode())
+    h.update(f"torch {torch.__version__} abi {_abi()}".encode())
+    for name in SOURCES + (BINDING,):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
+def namespace() -> str:
+    """The operators' namespace: ``torch.ops.<namespace()>``."""
+    return f"mcl3dl_{_digest()}"
+
+
+def _torch_paths():
+    """``(include dirs, library dirs)`` of torch's CUDA build."""
+    from torch.utils import cpp_extension
+
+    return (cpp_extension.include_paths(device_type="cuda"),
+            cpp_extension.library_paths(device_type="cuda"))
+
+
+def commands(work: Path, lib: Path):
+    """``(compiles, link)``: one ``(label, argv)`` a source, the kernels
+    by nvcc and the binding by the host compiler, and the link's argv."""
+    nvcc = _nvcc()
+    includes, libdirs = _torch_paths()
+    compiles = []
+    for name in SOURCES:
+        obj = work / (Path(name).stem + ".o")
+        compiles.append((f"nvcc {name}", [
+            nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / name),
+            "-o", str(obj)]))
+    compiles.append((f"host {BINDING}", [
+        _host_cxx(), *HOST_FLAGS, *(f"-I{d}" for d in includes),
+        f"-D_GLIBCXX_USE_CXX11_ABI={_abi()}", f"-DMCL_OPS_NS={namespace()}",
+        "-c", str(CSRC / BINDING), "-o", str(work / "ops.o")]))
+    objs = [argv[-1] for _, argv in compiles]
+    # -Bsymbolic: each build's operators call its own C entry points, even
+    # with another build's library (the same names) loaded in the process
+    link = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-Xlinker", "-Bsymbolic",
+            *objs, "-o", str(lib), *(f"-L{d}" for d in libdirs),
+            *(a for d in libdirs for a in ("-Xlinker", f"-rpath,{d}")),
+            *(f"-l{name}" for name in TORCH_LIBS)]
+    return compiles, link
+
+
+def _run(cmds, verbose):
+    """Run the labelled argvs in parallel; returns each label's wall
+    seconds; raises with the output of every one that failed."""
+    def one(cmd):
+        label, argv = cmd
+        t0 = time.perf_counter()
+        out = subprocess.run(argv, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        return label, time.perf_counter() - t0, out
+
+    with ThreadPoolExecutor(max_workers=len(cmds)) as ex:
+        runs = list(ex.map(one, cmds))
+    failed = []
+    for label, _, out in runs:
+        if verbose or out.returncode:
+            print(f"[{label}]\n{out.stdout}", flush=True)
+        if out.returncode:
+            failed.append(f"{label}:\n{out.stdout}")
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return {label: secs for label, secs, _ in runs}
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless this source hash is already built;
-    returns the library path."""
+    """Compile the kernels and the binding unless this hash is already
+    built; returns the library path.  Sets ``seconds`` (empty when the
+    library was there)."""
+    seconds.clear()
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / "libmcl3dl_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     work = Path(tempfile.mkdtemp(dir=out_dir))
-    procs = []
-    for name in SOURCES:
-        obj = work / (Path(name).stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / name),
-               "-o", str(obj)]
-        procs.append((name, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    objs, failed = [], []
-    for name, obj, proc in procs:
-        out, _ = proc.communicate()
-        if verbose or proc.returncode:
-            print(f"[nvcc {name}]\n{out}", flush=True)
-        if proc.returncode:
-            failed.append(name)
-        objs.append(str(obj))
-    if failed:
-        raise RuntimeError(f"nvcc failed on {failed}")
     tmp_lib = work / lib.name
-    link = subprocess.run(
-        [nvcc, "-shared", "-Xcompiler", "-fPIC", *objs, "-o", str(tmp_lib)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if link.returncode:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    compiles, link = commands(work, tmp_lib)
+    done = _run(compiles, verbose)
+    seconds["nvcc"] = max(s for k, s in done.items() if k.startswith("nvcc"))
+    seconds["host"] = done[f"host {BINDING}"]
+    seconds["link"] = _run([("link", link)], verbose)["link"]
     os.replace(tmp_lib, lib)
     shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
 def library():
-    """The loaded kernel library (built on first use)."""
+    """The operators' namespace object, ``torch.ops.mcl3dl_<hash>`` (the
+    library built and loaded on first use)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
-        _lib = lib
+        torch.ops.load_library(str(build()))
+        _lib = getattr(torch.ops, namespace())
     return _lib
 
 
-def current_stream() -> int:
-    """The raw handle of the current device's current CUDA stream (what
-    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
-    ``Stream`` object): inside ``torch.cuda.stream(s)`` it is ``s``'s."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
-
-
-def launch(name: str, *args) -> None:
-    """Call one C entry point on the current CUDA stream; raise on a
-    launch error (the entry returns ``cudaGetLastError()``)."""
-    fn = _fns.get(name)
+def op(name: str):
+    """The ``OpOverload`` of operator ``name`` (kept, so a call pays no
+    overload resolution)."""
+    fn = _ops.get(name)
     if fn is None:
-        library()
-        fn = _fns[name]
-    err = fn(*args, current_stream())
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def check(t, name: str, dtype, shape=None, device=None):
-    """Validate a kernel argument before its pointer is handed over."""
-    if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()
-            and (device is None or t.device == device)
-            and (shape is None or t.shape == tuple(shape))):
-        _refuse(t, name, dtype, shape, device)
-    return t.data_ptr()
-
-
-def _refuse(t, name, dtype, shape, device):
-    """Raise the first of ``check``'s conditions that ``t`` fails."""
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        fn = _ops[name] = getattr(library(), name).default
+    return fn

@@ -20,8 +20,9 @@ G9     ``rowloop_gather``      tools/exp_gather2.py::k_rowloop        ``flat_gat
 G10    ``rowsel_accumulate``   tools/exp_rowsel_shape.py::kern        ``rowsel_plain``
 =====  ======================  =====================================  ==========
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes the
-plain version.  Each wrapper counts its launches in ``.launches`` and
+A CUDA tensor launches the kernel through its operator (``csrc/ops.cpp``,
+which checks the tensors as the kernel needs them) or raises; a CPU
+tensor takes the plain version.  Each wrapper counts its launches in ``.launches`` and
 names its plain version in ``.plain``.  The plain versions compute the
 index arithmetic in int32 (it wraps like the JAX int32 arithmetic) and
 cast to int64 only to index; the kernels take int32.  Where the JAX body
@@ -37,28 +38,6 @@ import torch
 from mcl_3dl_tpu_torch.ops import build
 
 LANES = 128
-
-
-def _ptr(t, name, dtype, shape=None, device=None):
-    """``build.check`` plus the 16-byte alignment of the kernels' vector
-    loads and stores."""
-    p = build.check(t, name, dtype, shape, device)
-    if p % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-    return p
-
-
-def _i32(v, name):
-    v = int(v)
-    if not -2 ** 31 <= v < 2 ** 31:
-        raise ValueError(f"{name}={v} does not fit int32")
-    return v
-
-
-def _pow2(n, name):
-    if n <= 0 or n & (n - 1):
-        raise ValueError(f"{name} must be a power of two, got {n}")
-    return n
 
 
 # ---- plain versions
@@ -108,36 +87,21 @@ def rowsel_plain(tab, rows, lanes, passes=16):
     return acc
 
 
-# ---- launchers shared by the wrappers
+# ---- launchers shared by the wrappers: one operator each (csrc/ops.cpp,
+# which checks the tensors and allocates the output)
 
 def _row_gather(wrapper, tab, idx, off, width, dtype):
     if not tab.is_cuda:
         return row_gather_plain(tab, idx, off)
-    rows, dev = tab.shape[0], tab.device
-    args = (_ptr(tab, "tab", dtype, (rows, width), dev),
-            _ptr(idx, "idx", torch.int32, (rows, LANES), dev))
-    out = torch.empty((rows, LANES), dtype=dtype, device=dev)
-    build.launch("mcl_row_gather", *args, out.data_ptr(), rows, width,
-                 tab.element_size(), _i32(off, "off"))
+    out = build.op("row_gather")(tab, idx, off, width, dtype)
     wrapper.launches += 1
     return out
 
 
 def _flat_gather(wrapper, tab, idx, off, shared):
-    # each tensor attribute is read once, as in ``_col_gather``
     if not tab.is_cuda:
         return flat_gather_plain(tab, idx, off)
-    shape = idx.shape
-    if shape[-1] != LANES:
-        raise ValueError(f"idx must end in {LANES} lanes, got {tuple(shape)}")
-    dev = tab.device
-    args = (_ptr(tab, "tab", torch.float32),
-            _ptr(idx, "idx", torch.int32, None, dev))
-    n = idx.numel()
-    out = torch.empty(n // LANES, LANES, dtype=torch.float32, device=dev)
-    build.launch("mcl_flat_gather", *args, out.data_ptr(),
-                 _pow2(tab.numel(), "tab.numel()"), n, _i32(off, "off"),
-                 shared)
+    out = build.op("flat_gather")(tab, idx, off, shared)
     wrapper.launches += 1
     return out
 
@@ -146,21 +110,7 @@ _COL_MODES = {"mod": 0, "shift": 1, "shift_transposed": 2}
 
 
 def _col_gather(wrapper, tab, idx, off, mode):
-    # G5's call is nearly all host path (its kernel takes ~2 us), so each
-    # tensor attribute is read once; the table's device is the call's
-    shape = tab.shape
-    if len(shape) != 2 or shape[1] != LANES:
-        raise ValueError(f"tab must be [R, {LANES}], got {tuple(shape)}")
-    if idx.shape[-1] != LANES:
-        raise ValueError(f"idx must end in {LANES} lanes, got {tuple(idx.shape)}")
-    dev = tab.device
-    args = (_ptr(tab, "tab", torch.float32),
-            _ptr(idx, "idx", torch.int32, None, dev))
-    n = idx.numel()
-    out = torch.empty(n // LANES, LANES, dtype=torch.float32, device=dev)
-    build.launch("mcl_col_gather", *args, out.data_ptr(),
-                 _pow2(shape[0], "table rows"), n, _i32(off, "off"),
-                 _COL_MODES[mode])
+    out = build.op("col_gather")(tab, idx, off, _COL_MODES[mode])
     wrapper.launches += 1
     return out
 
@@ -235,18 +185,7 @@ def rowsel_accumulate(tab, rows, lanes, passes=16, tile_rows=8):
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
     if not tab.is_cuda:
         return rowsel_plain(tab, rows, lanes, passes)
-    # each tensor attribute is read once, as in ``_col_gather``
-    shape, qshape = tab.shape, rows.shape
-    if len(shape) != 2 or shape[1] != LANES:
-        raise ValueError(f"tab must be [R, {LANES}], got {tuple(shape)}")
-    dev = tab.device
-    args = (_ptr(tab, "tab", torch.float32),
-            build.check(rows, "rows", torch.int32, None, dev),
-            build.check(lanes, "lanes", torch.int32, qshape, dev))
-    out = torch.empty(qshape, dtype=torch.float32, device=dev)
-    build.launch("mcl_rowsel_accumulate", *args, out.data_ptr(), shape[0],
-                 out.numel(), _i32(passes, "passes"),
-                 _i32(tile_rows * LANES, "tile_rows * 128"))
+    out = build.op("rowsel_accumulate")(tab, rows, lanes, passes, tile_rows)
     rowsel_accumulate.launches += 1
     return out
 

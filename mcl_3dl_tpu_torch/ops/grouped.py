@@ -20,7 +20,8 @@ count), with that package's names, defaults and validation; the skip
 granularity is a module constant.  The caller reads the ``fits`` flags on the host and only then
 builds the layout (no empty layout is ever needed).
 
-Kernel wrappers take the kernel for CUDA tensors and the plain version
+Kernel wrappers take the kernel for CUDA tensors, through its operator
+(``csrc/ops.cpp``, which checks the tensors), and the plain version
 (a vectorized restatement with the same f32 op sequence and the same
 sequential accumulation order) for CPU tensors.
 """
@@ -427,22 +428,10 @@ def grouped_like_score(gp_A, tile_group, meta, pts_fp, skipw, tables, *,
     if not gp_A.is_cuda:
         return like_score_plain(gp_A, tile_group, meta, pts_fp, skipw, tables,
                                 **kw)
-    nt = gp_A.shape[0]
-    kk, gg = tables.shape[0], tables.shape[1]
-    dev = gp_A.device
-    i32 = torch.int32
-    args = (build.check(gp_A, "gp_A", torch.float32, (nt, 12, TILE), dev),
-            build.check(tile_group, "tile_group", i32, (nt,), dev),
-            build.check(meta, "meta", i32, (kk, gg, 4), dev),
-            build.check(pts_fp, "pts_fp", i32, (kk, 4), dev),
-            build.check(skipw, "skipw", i32, (kk, gg), dev),
-            build.check(tables, "tables", torch.uint8, (kk, gg, R_ROWS, ZW), dev))
-    score = torch.empty((nt * TILE,), dtype=torch.float32, device=dev)
-    match = torch.empty_like(score)
-    build.launch("mcl_like_score", *args, score.data_ptr(), match.data_ptr(),
-                 nt * TILE, kk, gg, SKIP_ALL, f32(trunc / 255.0),
-                 f32(_PT_SCALE), f32(trunc), f32(match_dist_min),
-                 f32(match_dist_flat), f32(match_weight))
+    score, match = build.op("like_score")(
+        gp_A, tile_group, meta, pts_fp, skipw, tables, SKIP_ALL,
+        f32(trunc / 255.0), f32(_PT_SCALE), f32(trunc), f32(match_dist_min),
+        f32(match_dist_flat), f32(match_weight))
     grouped_like_score.launches += 1
     return score, match
 
@@ -520,26 +509,12 @@ def grouped_beam_pen(gp_A, tile_group, meta, pts_fp, aux, skip, tables, *,
     if not gp_A.is_cuda:
         return beam_pen_plain(gp_A, tile_group, meta, pts_fp, aux, skip,
                               tables, **kw)
-    nt = gp_A.shape[0]
-    bb, gg = tables.shape[0], tables.shape[2]
-    kk = bb * nprobe
-    dev = gp_A.device
-    i32 = torch.int32
-    args = (build.check(gp_A, "gp_A", torch.float32, (nt, 12, TILE), dev),
-            build.check(tile_group, "tile_group", i32, (nt,), dev),
-            build.check(meta, "meta", i32, (kk, gg, 4), dev),
-            build.check(pts_fp, "pts_fp", i32, (kk, 4), dev),
-            build.check(aux, "aux", i32, (bb, 2), dev),
-            build.check(skip, "skip", i32, (kk, gg), dev),
-            build.check(tables, "tables", torch.uint8,
-                        (bb, nprobe, gg, R_ROWS, ZW), dev))
-    npen = torch.empty((nt * TILE,), dtype=torch.float32, device=dev)
     # the entry point zeroes npen, then the kernel adds each penalty
-    build.launch("mcl_beam_pen", *args, npen.data_ptr(), nt * TILE, bb, nprobe,
-                 gg, SKIP_ALL, int(bool(long_pen)), f32(trunc / 255.0),
-                 f32(_PT_SCALE), f32(trunc), f32(grid_min), f32(radius),
-                 f32(hit_range * hit_range), f32(sin_total_ref),
-                 f32(trunc * 0.99), f32(tol))
+    npen = build.op("beam_pen")(
+        gp_A, tile_group, meta, pts_fp, aux, skip, tables, nprobe, SKIP_ALL,
+        int(bool(long_pen)), f32(trunc / 255.0), f32(_PT_SCALE), f32(trunc),
+        f32(grid_min), f32(radius), f32(hit_range * hit_range),
+        f32(sin_total_ref), f32(trunc * 0.99), f32(tol))
     grouped_beam_pen.launches += 1
     return npen
 

@@ -9,7 +9,8 @@ the ``[points, particles]`` score with one indexed load per query
 flat-floor clamp, per-particle sum + match count).
 
 Replaces mcl_3dl_tpu/ops/local_gather.py::_score_kernel.  A CUDA tensor
-launches the kernel; a CPU tensor takes the plain version.
+launches the kernel through its operator (``csrc/ops.cpp``); a CPU tensor
+takes the plain version.
 """
 
 from __future__ import annotations
@@ -50,17 +51,9 @@ def local_score(tables, lidx, *, match_dist_min, match_dist_flat,
               match_weight=match_weight)
     if not tables.is_cuda:
         return local_score_plain(tables, lidx, **kw)
-    kk = tables.shape[0]
-    n = lidx.shape[1]
-    tab_len = tables[0].numel()
-    dev = tables.device
-    args = (build.check(tables, "tables", torch.float32, device=dev),
-            build.check(lidx, "lidx", torch.int32, (kk, n), dev))
-    score = torch.empty((n,), dtype=torch.float32, device=dev)
-    match = torch.empty_like(score)
-    build.launch("mcl_local_score", *args, score.data_ptr(), match.data_ptr(),
-                 n, kk, tab_len, f32(match_dist_min), f32(match_dist_flat),
-                 f32(match_weight))
+    score, match = build.op("local_score")(
+        tables, lidx, f32(match_dist_min), f32(match_dist_flat),
+        f32(match_weight))
     local_score.launches += 1
     return score, match
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 import statistics
 import subprocess
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
@@ -66,6 +66,14 @@ class Lookup:
     host_ms: Optional[float] = None
     library_device_ms: Optional[float] = None
     library_host_ms: Optional[float] = None
+    # the wrapper's arguments, for ``run_in`` (set by ``kernel_lookup``)
+    args: tuple = ()
+    kw: dict = field(default_factory=dict)
+
+    def run_in(self, module):
+        """The experiment through ``module``'s wrapper of the same name
+        (another build's ``ops/gather_bench.py``)."""
+        return getattr(module, self.name)(*self.args, **self.kw)
 
     @property
     def bound_ms(self) -> float:
@@ -99,7 +107,8 @@ def kernel_lookup(tag, replaces, wrapper, args, kw=None, **fields) -> Lookup:
     ``args`` only."""
     kw = kw or {}
     return Lookup(tag, wrapper.__name__, replaces, lambda: wrapper(*args, **kw),
-                  lambda: wrapper.plain(*args), wrapper, **fields)
+                  lambda: wrapper.plain(*args), wrapper, args=tuple(args),
+                  kw=kw, **fields)
 
 
 def nbytes(*tensors) -> int:

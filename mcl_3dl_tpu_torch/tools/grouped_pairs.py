@@ -1,32 +1,35 @@
-"""Kernels K1 (``grouped_like_score``) and K2 (``grouped_beam_pen``) of
-this package against other builds of them, timed in turns at the main
-path's final state on the card.
+"""Kernels K1 (``grouped_like_score``), K2 (``grouped_beam_pen``) and K3
+(``local_score``) of this package against other builds of them, timed in
+turns at the main path's final state on the card.
 
     python -m mcl_3dl_tpu_torch.tools.grouped_pairs [--pairs 5] [NAME=DIR ...]
 
 Each ``DIR`` is another copy of the ``mcl_3dl_tpu_torch`` package (an
 older commit's, or one with an edited ``csrc/grouped.cu``).  Its kernels
 are built from its own sources by its own ``ops/build.py`` and launched
-through this package's wrappers, which pass every build the same C
-arguments.  The state is the one ``chip_smoke.py`` measures at (``engine`` and
+through its own wrappers (``load_copy``), so each build's whole launch
+path is timed: an older copy's ctypes calls, this one's torch
+operators.  The state is the one ``chip_smoke.py`` measures at (``engine`` and
 ``drive``, which it shares): 1,048,576 particles on the flagship room
 world, a coarse initial pose measured once, then the tracking spread and
 ten scans to tiers 0/0.
 
-In each of ``--pairs`` rounds every build is timed once (``time_ms``, the
-median of 25 launches), in list order in even rounds and reversed in odd
-ones.  Printed per kernel and build: the median and quartiles over the
-rounds, the ratio to the byte/operation bound, in how many rounds this
-package's kernel was faster, and whether the build's output equals the
-plain version on the slots the caller keeps (a build that skips its
-lookups does not).  Every line carries the card's ``nvidia-smi`` name and
+K1, K2 and then K3 (``local_case``: 96 points x 1M particles on this
+state's tier-1 box tables) are timed.  In each of ``--pairs`` rounds
+every build is timed once (``time_ms``, the median of 25 launches, and
+``tools.device_ms``, a captured graph of 25), in list order in even
+rounds and reversed in odd ones.  Printed per kernel and build: the
+median and quartiles over the rounds, the ratio to the byte/operation
+bound, in how many rounds this package's kernel was faster, the median
+device time of a call and the host time of a call (``tools.host_ms``,
+once), and whether the build's output equals the plain version on the
+slots the caller keeps (a build that skips its lookups does not).  Every line carries the card's ``nvidia-smi`` name and
 power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import importlib.util
 import statistics
 import time
@@ -43,7 +46,9 @@ from mcl_3dl_tpu_torch.models.likelihood import (box_queries, box_tables,
                                                  grouped_like_inputs)
 from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
-from mcl_3dl_tpu_torch.tools import bound, card, time_ms
+from mcl_3dl_tpu_torch.ops import local_gather as olg
+from mcl_3dl_tpu_torch.tools import (bound, card, device_ms, host_ms,
+                                     time_ms)
 
 NUM_PARTICLES = 1 << 20
 CLOUD_POINTS = 4096
@@ -185,31 +190,49 @@ def local_case(df, lp, pos, rmat, points, valid):
             torch.arange(n, device=lidx.device))
 
 
-def load_build(pkg_dir):
-    """The ``ops/build.py`` of another package copy, as its own module."""
-    path = Path(pkg_dir).resolve() / "ops" / "build.py"
-    if not path.exists():
-        raise FileNotFoundError(f"{path}: not a copy of the package")
-    spec = importlib.util.spec_from_file_location(
-        f"_grouped_pairs_build_{abs(hash(str(path)))}", path)
+COPY_MODULES = ("grouped", "local_gather", "gather_bench")
+
+
+def _exec_module(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-@contextlib.contextmanager
-def launching(other, ops=og):
-    """The wrappers of the ops module ``ops`` launch ``other``'s kernels
-    through ``other``'s ``check`` and ``launch`` (None: ours)."""
-    if other is None:
-        yield
-        return
-    saved = ops.build
-    ops.build = types.SimpleNamespace(check=other.check, launch=other.launch)
+def load_copy(pkg_dir):
+    """Another copy of the package's kernel modules: its ``ops/build.py``
+    and its wrappers (``COPY_MODULES``), each loaded as a module of its
+    own and bound to that copy's ``build``, so a call goes through the
+    copy's whole launch path (its checks, its binding, its kernels).
+    Returns a namespace with ``build`` and one attribute a module."""
+    ops_dir = Path(pkg_dir).resolve() / "ops"
+    if not (ops_dir / "build.py").exists():
+        raise FileNotFoundError(f"{ops_dir / 'build.py'}: not a copy of the "
+                                "package")
+    tag = f"_pairs_copy_{abs(hash(str(ops_dir)))}"
+    copy = types.SimpleNamespace(
+        build=_exec_module(ops_dir / "build.py", f"{tag}.build"))
+    # the copy's wrappers import ``build`` from this package's ``ops``:
+    # hand them the copy's while they load
+    ops_pkg = importlib.import_module("mcl_3dl_tpu_torch.ops")
+    saved = ops_pkg.build
+    ops_pkg.build = copy.build
     try:
-        yield
+        for name in COPY_MODULES:
+            setattr(copy, name, _exec_module(ops_dir / f"{name}.py",
+                                             f"{tag}.{name}"))
     finally:
-        ops.build = saved
+        ops_pkg.build = saved
+    return copy
+
+
+def this_copy():
+    """This package's kernel modules, as ``load_copy`` returns a copy's."""
+    from mcl_3dl_tpu_torch.ops import gather_bench
+
+    return types.SimpleNamespace(build=build, grouped=og, local_gather=olg,
+                                 gather_bench=gather_bench)
 
 
 def round_order(versions, r):
@@ -250,43 +273,65 @@ def rows_touched(A, tile_group, meta, pts_fp, skip, every=8):
     return float(n.mean()), float(torch.quantile(n, 0.9))
 
 
-def compare(inp, others, pairs, where):
-    """Time each kernel of each build in ``pairs`` rounds; print and
-    return ``{kernel: {build: [ms, ...]}}``."""
-    versions = [("this", None)] + list(others.items())
-    kernels = {
-        "like_score": (lambda: og.grouped_like_score(*inp.like, **inp.like_kw),
-                       lambda: og.like_score_plain(*inp.like, **inp.like_kw),
-                       inp.like_bound),
-        "beam_pen": (lambda: (og.grouped_beam_pen(*inp.beam, **inp.beam_kw),),
-                     lambda: (og.beam_pen_plain(*inp.beam, **inp.beam_kw),),
-                     inp.beam_bound),
+def kernel_cases(inp, k3=None):
+    """K1 and K2 at ``inp`` (``kernel_inputs``), and K3 at ``k3`` (a
+    ``local_case``) where given: ``{name: (run(copy), plain(), (bytes,
+    ops), kept)}``, ``run`` through a copy's modules (``load_copy``)."""
+    cases = {
+        "like_score": (
+            lambda c: c.grouped.grouped_like_score(*inp.like, **inp.like_kw),
+            lambda: og.like_score_plain(*inp.like, **inp.like_kw),
+            inp.like_bound, inp.kept),
+        "beam_pen": (
+            lambda c: (c.grouped.grouped_beam_pen(*inp.beam, **inp.beam_kw),),
+            lambda: (og.beam_pen_plain(*inp.beam, **inp.beam_kw),),
+            inp.beam_bound, inp.kept),
     }
+    if k3 is not None:
+        args, kw, k3_bound, kept = k3
+        cases["local_score"] = (
+            lambda c: c.local_gather.local_score(*args, **kw),
+            lambda: olg.local_score_plain(*args, **kw), k3_bound, kept)
+    return cases
+
+
+def compare(cases, others, pairs, where):
+    """Time each kernel of each build in ``pairs`` rounds (``time_ms``, the
+    median of 25 launches, and ``device_ms``, a captured graph of 25),
+    with each build's host time a call (``host_ms``, once); print and
+    return ``{kernel: {build: [ms, ...]}}``."""
+    versions = [("this", this_copy())] + list(others.items())
     out = {}
-    for kname, (run, plain, (nbytes, ops)) in kernels.items():
-        want = [w[inp.kept] for w in plain()]
-        equal = {}
-        for name, lib in versions:
-            with launching(lib):
-                got = run()
+    for kname, (run, plain, (nbytes, ops), kept) in cases.items():
+        want = [w[kept] for w in plain()]
+        equal, host = {}, {}
+        call = {name: (lambda c=copy: run(c)) for name, copy in versions}
+        for name, _ in versions:
+            got = call[name]()
             torch.cuda.synchronize()
-            equal[name] = all(torch.equal(g[inp.kept], w)
+            equal[name] = all(torch.equal(g[kept], w)
                               for g, w in zip(got, want))
+            host[name] = host_ms(call[name])
         times = {name: [] for name, _ in versions}
+        dev = {name: [] for name, _ in versions}
         for r in range(pairs):
-            for name, lib in round_order(versions, r):
-                with launching(lib):
-                    times[name].append(time_ms(run, 25))
+            for name, _ in round_order(versions, r):
+                times[name].append(time_ms(call[name], 25))
+                dev[name].append(device_ms(call[name]))
         bound_ms, by = bound(nbytes, ops)
         for name, _ in versions:
-            xs = times[name]
+            xs, ds = times[name], dev[name]
             q1, q3 = _quartiles(xs)
             med = statistics.median(xs)
             wins = sum(a < b for a, b in zip(times["this"], xs))
+            dwins = sum(a < b for a, b in zip(dev["this"], ds))
             vs = "" if name == "this" else f", this faster in {wins} of {pairs}"
+            dvs = "" if name == "this" else f", this shorter in {dwins} of {pairs}"
             print(f"{kname} {name}: median {med:.4f} ms [q1 {q1:.4f}, q3 "
                   f"{q3:.4f}] over {pairs} rounds, {med / bound_ms:.2f}x the "
-                  f"bound {bound_ms:.4f} ms by {by}{vs}, equal to plain on kept "
+                  f"bound {bound_ms:.4f} ms by {by}{vs}, device "
+                  f"{statistics.median(ds):.4f} ms a call{dvs}, host "
+                  f"{host[name]:.4f} ms a call, equal to plain on kept "
                   f"slots: {equal[name]} [{where}]", flush=True)
         out[kname] = times
     return out
@@ -302,10 +347,11 @@ def main(argv=None):
     others = {}
     for spec in a.others:
         name, _, path = spec.partition("=")
-        others[name] = load_build(path)
-    # every build compiles its own sources; nvcc runs in subprocesses
+        others[name] = load_copy(path)
+    # every build compiles its own sources; the compilers run in subprocesses
     with ThreadPoolExecutor(max_workers=8) as ex:
-        list(ex.map(lambda m: m.build(), [build, *others.values()]))
+        list(ex.map(lambda m: m.build(), [build, *(c.build for c in
+                                                   others.values())]))
     where = card(torch.device("cuda"))
     rng = np.random.default_rng(0)
     eng = engine()
@@ -318,7 +364,10 @@ def main(argv=None):
         print(f"{kname}: a warp's 32 queries of one live point touch "
               f"{mean:.2f} table rows on average, {p90:.0f} at the 90th "
               f"percentile (every 8th tile)", flush=True)
-    return compare(inp, others, a.pairs, where)
+    # K3 at 96 points x 1M particles, on this state's tier-1 box tables
+    k3 = local_case(eng.map.df, eng.params.likelihood, eng.pstate.pos,
+                    inp.rmat, inp.like_pts, inp.like_valid)
+    return compare(kernel_cases(inp, k3), others, a.pairs, where)
 
 
 if __name__ == "__main__":

@@ -12,11 +12,11 @@ against its cap, both ``fits`` flags, the raw z and a fingerprint of the
 particle poses; then, for each later drive, the first measurement whose
 particles differ from the first drive's (none: reproducible).
 
-``--ops`` runs two more drives under an op log (every aten op with
-fingerprints of its tensor inputs and outputs) and prints the first op
-whose outputs differ: with equal inputs it is the op that is not
-reproducible; with other inputs they were written outside the log (a
-kernel launched through ctypes) or read before they were written.
+``--ops`` runs two more drives under an op log (every aten op and every
+kernel's torch operator, with fingerprints of its tensor inputs and
+outputs) and prints the first op whose outputs differ: with equal inputs
+it is the op that is not reproducible; with other inputs they were
+written outside the log or read before they were written.
 Outputs of ``empty`` allocations are not compared.
 
 ``--drive recovery`` compares the global-mode drive instead: the three

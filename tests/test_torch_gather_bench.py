@@ -32,7 +32,7 @@ from jax.experimental.pallas import tpu as pltpu
 from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import gather_bench as ogb
 from mcl_3dl_tpu_torch.tools import (exp_gather, exp_gather2, exp_rowsel_shape,
-                                     gather_pairs)
+                                     gather_pairs, grouped_pairs)
 
 torch.set_num_threads(2)   # several test workers share the CPU
 
@@ -339,16 +339,28 @@ def test_gather_pairs_needs_cuda(monkeypatch):
 
 
 def test_gather_pairs_alternates_builds(monkeypatch, capsys):
-    """In each round every build is timed once, in list order in even
-    rounds and reversed in odd ones, then the library call."""
-    other = types.SimpleNamespace(check=None, launch=None)
+    """In each round every build is timed once, through its own wrapper,
+    in list order in even rounds and reversed in odd ones, then the
+    library call."""
     rows = [e for e in exp_gather2.lookups(torch.device("cpu"), q=1 << 15,
                                            bq=128) if e.tag == "G7"]
+    calls = []
+
+    def other_wrapper(tab, idx):
+        calls.append("other")
+        return ogb.sublane_gather_plain(tab, idx)
+
+    other = types.SimpleNamespace(
+        gather_bench=types.SimpleNamespace(sublane_gather=other_wrapper))
     order = []
 
     def fake_time_ms(fn, iters):
-        order.append("library" if fn is rows[0].library else
-                     "this" if gather_pairs.ogb.build is build else "other")
+        if fn is rows[0].library:
+            order.append("library")
+        else:
+            n = len(calls)
+            fn()
+            order.append("other" if len(calls) > n else "this")
         return 1.0 + len(order)
 
     monkeypatch.setattr(gather_pairs, "time_ms", fake_time_ms)
@@ -357,7 +369,6 @@ def test_gather_pairs_alternates_builds(monkeypatch, capsys):
     res = gather_pairs.compare(rows, {"other": other}, 4, "cpu",
                                clock=lambda: "1980 MHz, 1980 MHz")
     assert order == ["this", "other", "library", "other", "this", "library"] * 2
-    assert gather_pairs.ogb.build is build
     (e, times, dev), = res
     assert e is rows[0] and sorted(times) == ["library", "other", "this"]
     assert dev == {"this": [0.5] * 4, "other": [0.5] * 4}
@@ -378,21 +389,24 @@ def test_gather_pairs_variant_is_a_copy_with_defines(tmp_path, monkeypatch):
     fake_build.parent.mkdir(parents=True)
     monkeypatch.setattr(gather_pairs.build, "__file__", str(fake_build))
     (tmp_path / pkg.name / "csrc").mkdir()
-    for f in ("build.py",):
+    for f in ("build.py",) + tuple(f"{m}.py" for m in grouped_pairs.COPY_MODULES):
         (tmp_path / pkg.name / "ops" / f).write_text((pkg / "ops" / f).read_text())
-    for f in build.SOURCES:
+    for f in build.SOURCES + (build.BINDING,):
         (tmp_path / pkg.name / "csrc" / f).write_text((pkg / "csrc" / f).read_text())
     mod = gather_pairs.variant("3x256", gather_pairs.VARIANTS["3x256"])
     copy = tmp_path / "build" / "variants" / "3x256" / pkg.name
-    assert pathlib.Path(mod.CSRC) == copy / "csrc"
+    assert pathlib.Path(mod.build.CSRC) == copy / "csrc"
     text = (copy / "csrc" / "gather_bench.cu").read_text()
     head = text.splitlines()[:4]
     assert head == ["#define MCL_FLAT_THREADS 256", "#define MCL_FLAT_PER_SM 3",
                     "#define MCL_ROWSEL_THREADS 256",
                     "#define MCL_ROWSEL_PER_SM 3"]
     assert text.endswith((pkg / "csrc" / "gather_bench.cu").read_text())
-    assert mod._digest() != build._digest()
+    assert mod.build._digest() != build._digest()
     assert not list(copy.rglob("__pycache__"))
+    # the copy's wrappers launch through the copy's build
+    assert mod.gather_bench.build is mod.build and mod.grouped.build is mod.build
+    assert mod.gather_bench.lane_gather is not ogb.lane_gather
 
 
 def test_gather_pairs_variant_refuses_a_macro_the_source_lacks(tmp_path,
@@ -409,6 +423,16 @@ def test_gather_pairs_variant_refuses_a_macro_the_source_lacks(tmp_path,
         gather_pairs.variant("b4", dict(MCL_FLAT_THREADS=512,
                                         MCL_FLAT_BATCH=4))
     assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("name", sorted(gather_pairs.VARIANTS))
+def test_gather_pairs_variants_set_guarded_macros(name):
+    """Every variant's macros are ones ``csrc/gather_bench.cu`` guards with
+    ``#ifndef``, so ``variant`` builds it and its defines take effect."""
+    pkg = pathlib.Path(build.__file__).resolve().parents[1]
+    source = (pkg / "csrc" / "gather_bench.cu").read_text()
+    defines = gather_pairs.VARIANTS[name]
+    assert defines and all(f"#ifndef {k}\n" in source for k in defines)
 
 
 def test_gather_pairs_pass_sweep_rows_compute_g10():

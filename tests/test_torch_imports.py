@@ -61,6 +61,25 @@ def test_sources_import_no_jax(path):
             f"{path.relative_to(ROOT)} imports {name}")
 
 
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_launch_nothing_through_ctypes(path):
+    """The kernels launch through torch operators (``ops/build.py`` loads
+    them with ``torch.ops.load_library``): no module imports ``ctypes``."""
+    for name in _imports(path):
+        assert name.split(".")[0] != "ctypes", (
+            f"{path.relative_to(ROOT)} imports {name}")
+
+
+def test_kernel_library_is_loaded_as_torch_operators():
+    """``ops/build.py`` loads the kernels with ``torch.ops.load_library``
+    and holds ``OpOverload``s, not C function pointers."""
+    text = (PORT / "ops" / "build.py").read_text()
+    assert "torch.ops.load_library" in text and ".default" in text
+    assert "CDLL" not in text and "argtypes" not in text
+
+
 def test_engine_defaults_to_cuda():
     from mcl_3dl_tpu_torch import MCL3DL, Params
 

@@ -28,7 +28,7 @@ from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops import gather_bench as ogb
 from mcl_3dl_tpu_torch.ops import local_gather as olg
 from mcl_3dl_tpu_torch.tools import (exp_gather, exp_gather2, exp_rowsel_shape,
-                                     to_device)
+                                     gather_pairs, to_device)
 
 torch.set_num_threads(2)   # several test workers share the CPU
 
@@ -416,28 +416,29 @@ def test_flat_gather_edges_match_plain(cuda, tag, size):
         assert torch.equal(got, want), args[2:]
 
 
-def test_launch_follows_current_stream(cuda, monkeypatch):
-    """``build.launch`` passes the current stream's raw handle: inside
-    ``torch.cuda.stream(s)`` it is ``s``'s, outside it the default one."""
-    build.library()
-    real = build._fns["mcl_col_gather"]
-    seen = []
-
-    def spy(*args):
-        seen.append(args[-1])
-        return real(*args)
-
-    monkeypatch.setitem(build._fns, "mcl_col_gather", spy)
+def test_launch_follows_current_stream(cuda):
+    """The operator launches on torch's current stream: inside
+    ``torch.cuda.stream(s)`` on ``s``, and inside a CUDA graph's capture
+    on the capturing stream (a launch on any other stream would not be
+    captured, and one on the legacy default stream would fail the
+    capture); its output, allocated inside the capture, is written by
+    the replay."""
     tab, idx = _col_inputs(cuda, 4, 24)
+    want = ogb.sub_gather_plain(tab, idx)
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
         on_s = ogb.sub_gather(tab, idx)
     torch.cuda.current_stream().wait_stream(s)
     on_default = ogb.sub_gather(tab, idx)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ogb.sub_gather(tab, idx)
+    captured.zero_()
+    graph.replay()
     torch.cuda.synchronize()
-    assert seen == [s.cuda_stream, torch.cuda.default_stream().cuda_stream]
-    assert torch.equal(on_s, on_default)
+    assert torch.equal(on_s, want) and torch.equal(on_default, want)
+    assert torch.equal(captured, want)
 
 
 def test_refused_lookup_launch_raises(cuda):
@@ -466,3 +467,193 @@ def test_cumsum_is_reproducible_on_the_card(cuda):
     np.testing.assert_allclose(first.cpu().numpy(),
                                np.cumsum(x.numpy().astype(np.float64)),
                                rtol=1e-6)
+
+
+# G3 at the edges of its direct form: blocks of 256 threads, 2 int4 groups
+# a thread (16 rows of 128 a block), a grid sized to the work.  Under one
+# block's share, one whole block, a block and a row, and many blocks with
+# a ragged last one; tables from 1 entry (shorter than one 16-byte copy)
+# to the largest the form takes.
+_G3_ROWS = {"one_row": 1, "rows_9": 9, "one_block": 16,
+            "block_and_row": 17, "blocks": 16 * 132 * 9 + 37}
+
+
+@pytest.mark.parametrize("n_tab", [1, 4, 1024, 4096])
+@pytest.mark.parametrize("size", sorted(_G3_ROWS))
+def test_twostage_gather_edges_match_plain(cuda, size, n_tab):
+    rows = _G3_ROWS[size]
+    rng = np.random.default_rng(33)
+    t = to_device(cuda)
+    tab = t(rng.standard_normal(n_tab).astype(np.float32))
+    idx = t(rng.integers(-2 ** 31, 2 ** 31, (rows, 128)).astype(np.int32))
+    for off in (5, -5, 2 ** 31 - 3):
+        n0 = ogb.twostage_gather.launches
+        got = ogb.twostage_gather(tab, idx, off)
+        assert ogb.twostage_gather.launches == n0 + 1
+        want = ogb.flat_gather_plain(tab, idx, off)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (size, n_tab, off)
+
+
+# G4 at row counts that are not a multiple of its 32 rows a block, every
+# u8 value in the table and offsets that wrap
+@pytest.mark.parametrize("rows", [1, 37, 64, 65, 1000, 131072 + 5])
+def test_lane_gather_u8_edges_match_plain(cuda, rows):
+    rng = np.random.default_rng(34)
+    tab = np.stack([rng.permutation(256)[:128] for _ in range(rows)])
+    tab[0, :] = np.arange(128) * 2 + 1
+    t = to_device(cuda)
+    tab = t(tab.astype(np.uint8))
+    idx = t(rng.integers(-2 ** 31, 2 ** 31, (rows, 128)).astype(np.int32))
+    seen = set()
+    for off in (0, 7, -3, 2 ** 31 - 1):
+        got = ogb.lane_gather_u8(tab, idx, off)
+        want = ogb.row_gather_plain(tab, idx, off)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8 and torch.equal(got, want), off
+        seen |= set(got.unique().tolist())
+    if rows >= 1000:
+        assert seen == set(range(256))
+
+
+# G3 through the ring variant (MCL_G3_RING): tiles of 64 rows of 128 lanes,
+# one block an SM, 4 stages.  Under one tile, one tile, a tile and a row,
+# and tiles that go round each block's ring more than twice with a short
+# last tile; tables from 1 entry to the largest G3 takes.
+_RING_ROWS = {"rows_9": 9, "one_tile": 64, "tile_and_row": 65,
+              "rounds": 64 * 132 * 9 + 37}
+
+
+@pytest.mark.parametrize("store", ["g3_ring", "g3_ring_bulk"])
+def test_g3_ring_variant_matches_plain(cuda, store):
+    other = gather_pairs.variant(store, gather_pairs.VARIANTS[store])
+    rng = np.random.default_rng(36)
+    t = to_device(cuda)
+    for n_tab in (1, 4, 1024, 4096):
+        tab = t(rng.standard_normal(n_tab).astype(np.float32))
+        for size, rows in _RING_ROWS.items():
+            idx = t(rng.integers(-2 ** 31, 2 ** 31, (rows, 128)).astype(np.int32))
+            for off in (5, -5, 2 ** 31 - 3):
+                got = other.gather_bench.twostage_gather(tab, idx, off)
+                want = ogb.flat_gather_plain(tab, idx, off)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (store, size, n_tab, off)
+
+
+def _misaligned(t):
+    """``t``'s values in a view 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() * t.element_size() + 4, dtype=torch.uint8,
+                       device=t.device)
+    view = flat[4:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _bad_calls(dev):
+    """Every operator through its wrapper with one argument at fault:
+    ``{case: (call, exception, message)}``."""
+    f32, i32 = torch.float32, torch.int32
+    tab = torch.zeros((128, 128), device=dev)
+    idx = torch.zeros((4, 128), dtype=i32, device=dev)
+    u8 = torch.zeros((4, 128), dtype=torch.uint8, device=dev)
+    small = torch.zeros((8, 128), device=dev)
+    tabs = torch.zeros((2, 3, 128), device=dev)
+    lidx = torch.zeros((2, 5), dtype=i32, device=dev)
+    kw = dict(match_dist_min=MDM, match_dist_flat=MDF, match_weight=MW)
+    df, scan, stats, layout = _cloud(dev, 7, n_tiles=1, K=2)
+    lo, _ = og.group_boxes(stats, scan, df.shape)
+    like = grouped_like_inputs(df, stats, lo, scan,
+                               torch.ones(2, dtype=torch.bool, device=dev), MDM)
+    kl = dict(match_dist_min=MDM, match_dist_flat=MDF, match_weight=MW,
+              trunc=float(df.trunc))
+    cpu = torch.device("cpu")
+    return {
+        "flat_idx_on_cpu": (lambda: ogb.twostage_gather(small, idx.to(cpu)),
+                            ValueError, "idx must be a CUDA tensor"),
+        "flat_idx_dtype": (lambda: ogb.twostage_gather(small, idx.long()),
+                           ValueError, "idx has dtype torch.int64, expected "
+                           "torch.int32"),
+        "flat_idx_lanes": (lambda: ogb.twostage_gather(small, idx[:, :64]),
+                           ValueError, r"idx must end in 128 lanes, got \(4, 64\)"),
+        "flat_idx_aligned": (lambda: ogb.twostage_gather(small, _misaligned(idx)),
+                             ValueError, "idx must be 16-byte aligned"),
+        "flat_tab_pow2": (lambda: ogb.twostage_gather(small[:3], idx),
+                          ValueError, "tab.numel\\(\\) must be a power of two"),
+        "flat_off_int32": (lambda: ogb.twostage_gather(small, idx, 2 ** 31),
+                           ValueError, "off=2147483648 does not fit int32"),
+        "row_tab_dtype": (lambda: ogb.lane_gather_u8(tab, idx), ValueError,
+                          "tab has dtype torch.float32, expected torch.uint8"),
+        "row_idx_shape": (lambda: ogb.lane_gather_u8(u8, idx[:3]), ValueError,
+                          r"idx has shape \(3, 128\), expected \(4, 128\)"),
+        "row_tab_aligned": (lambda: ogb.lane_gather(_misaligned(tab[:4]), idx),
+                            ValueError, "tab must be 16-byte aligned"),
+        "row_tab_contiguous": (lambda: ogb.lane_gather(
+            torch.zeros((128, 4), device=dev).t(), idx),
+                               ValueError, "tab must be contiguous"),
+        "col_tab_shape": (lambda: ogb.sub_gather(tabs, idx), ValueError,
+                          r"tab must be \[R, 128\], got \(2, 3, 128\)"),
+        "col_idx_on_cpu": (lambda: ogb.sub_gather(tab, idx.to(cpu)),
+                           ValueError, "idx must be a CUDA tensor"),
+        "rowsel_lanes_shape": (lambda: ogb.rowsel_accumulate(
+            tab, idx, idx[:3]), ValueError,
+            r"lanes has shape \(3, 128\), expected \(4, 128\)"),
+        "rowsel_rows_dtype": (lambda: ogb.rowsel_accumulate(
+            tab, idx.float(), idx), ValueError,
+            "rows has dtype torch.float32, expected torch.int32"),
+        "local_lidx_dtype": (lambda: olg.local_score(tabs, lidx.long(), **kw),
+                             ValueError, "lidx has dtype torch.int64"),
+        "local_lidx_shape": (lambda: olg.local_score(tabs, lidx[:1], **kw),
+                             ValueError, r"lidx has shape \(1, 5\), expected "
+                             r"\(2, 5\)"),
+        "like_meta_dtype": (lambda: og.grouped_like_score(
+            layout.A, layout.tile_group, like[0].long(), *like[1:], **kl),
+            ValueError, "meta has dtype torch.int64, expected torch.int32"),
+        "like_tables_on_cpu": (lambda: og.grouped_like_score(
+            layout.A, layout.tile_group, *like[:3], like[3].to(cpu), **kl),
+            ValueError, "tables must be a CUDA tensor"),
+        "like_tile_group_shape": (lambda: og.grouped_like_score(
+            layout.A, layout.tile_group[:-1], *like, **kl), ValueError,
+            "tile_group has shape"),
+    }
+
+
+_BAD = ("flat_idx_on_cpu flat_idx_dtype flat_idx_lanes flat_idx_aligned "
+        "flat_tab_pow2 flat_off_int32 row_tab_dtype row_idx_shape "
+        "row_tab_aligned row_tab_contiguous col_tab_shape col_idx_on_cpu "
+        "rowsel_lanes_shape rowsel_rows_dtype local_lidx_dtype "
+        "local_lidx_shape like_meta_dtype like_tables_on_cpu "
+        "like_tile_group_shape").split()
+
+
+@pytest.mark.parametrize("case", _BAD)
+def test_op_refuses_bad_tensors(cuda, case):
+    """Each operator refuses a tensor on the wrong device, of the wrong
+    dtype or shape, not contiguous or not 16-byte aligned, with the
+    message the Python checks gave, and launches nothing."""
+    call, exc, msg = _bad_calls(cuda)[case]
+    counts = [w.launches for w in ogb.WRAPPERS]
+    with pytest.raises(exc, match=msg):
+        call()
+    assert [w.launches for w in ogb.WRAPPERS] == counts
+
+
+def test_two_builds_in_one_process(cuda):
+    """Another build of the package (a block-shape variant of G4) loads
+    beside this one: its operators live in their own namespace, and each
+    build's wrappers launch its own kernels."""
+    other = gather_pairs.variant("g4_64rows", gather_pairs.VARIANTS["g4_64rows"])
+    assert other.build.namespace() != build.namespace()
+    other_ns, ns = other.build.library(), build.library()
+    assert other_ns is not ns
+    rng = np.random.default_rng(35)
+    t = to_device(cuda)
+    tab = t(rng.integers(0, 256, (77, 128)).astype(np.uint8))
+    idx = t(rng.integers(0, 128, (77, 128)).astype(np.int32))
+    want = ogb.row_gather_plain(tab, idx, 3)
+    n0, m0 = ogb.lane_gather_u8.launches, other.gather_bench.lane_gather_u8.launches
+    mine = ogb.lane_gather_u8(tab, idx, 3)
+    theirs = other.gather_bench.lane_gather_u8(tab, idx, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(mine, want) and torch.equal(theirs, want)
+    assert ogb.lane_gather_u8.launches == n0 + 1
+    assert other.gather_bench.lane_gather_u8.launches == m0 + 1

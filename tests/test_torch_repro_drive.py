@@ -48,7 +48,7 @@ def test_first_difference_names_the_op():
     # other inputs and writes equal bits
     other = ref[:2] + [("aten.empty", [], [5]), ("aten.add", [6], [4])]
     assert rd.first_difference(ref, other) is None
-    # inputs that changed outside the log (a ctypes kernel's output)
+    # inputs that changed outside the log
     other = ref[:3] + [("aten.add", [6], [8])]
     assert rd.first_difference(ref, other) == (3, (
         "other inputs and outputs (inputs written outside the log, or read "
