@@ -8,7 +8,12 @@ time):
 
 1. device facts: GPU, power limit, CUDA runtime, nvcc, triton;
 2. build of the CUDA kernels with nvcc and of their torch operators with
-   the host compiler (first use), with the seconds of each;
+   the host compiler (first use), with the seconds of each; then the map
+   build on the host (``map_phase``): the native map compiler
+   (``csrc/map_builder.cpp``, g++ at first use) against its numpy plain
+   version, on the flagship world through ``MapData.build`` (the fields,
+   the corner pack and the occupancy arrays byte-equal) and on one field
+   of a 2.8M-point room, with the seconds of each and the host CPU;
 3. the main path (``tools/grouped_pairs.engine`` and ``drive``):
    ``MCL3DL(Params(num_particles=1<<20), device="cuda")`` on the
    flagship room world, stationary odometry and scans through
@@ -22,8 +27,11 @@ time):
    path's shapes (inputs from the drive's last state): bit-equal on every
    slot whose value the caller keeps, then timed beside its bound, with
    a call split into device time (a CUDA graph's replay) and host time
-   (1000 back-to-back calls);
-5. where a steady step's time goes: each layer timed on the final state,
+   (1000 back-to-back calls); K3 also at the edges of its forms (N 128
+   with K 1, N 384 with K 96, and the 1M case through a lidx view that
+   is not 16-byte aligned), bit-equal;
+5. where a steady step's time goes: each layer timed on the final state
+   (and the likelihood's tier 1 around K3: box queries, box tables, K3),
    ``push_cloud`` over 20 more scans, and one step under
    ``torch.profiler`` for the device-busy share (run last);
 6. the lookup microbenchmarks (kernels G1-G10, ``mcl_3dl_tpu_torch/tools``)
@@ -107,8 +115,11 @@ limit, the one before it the kernel JSON; the last line is
 1); without a CUDA device the script exits 1 before any phase.
 """
 
+import contextlib
 import json
 import os
+import platform
+import shutil
 import statistics
 import subprocess
 import sys
@@ -201,6 +212,139 @@ def report(results, card, kname, src, replaces, kernel, plain, bytes_, ops,
           flush=True)
 
 
+def host_cpu():
+    """The host CPU's model name (``/proc/cpuinfo``, else ``lscpu``, else
+    the machine type) and its logical core count."""
+    model = None
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.split(":")[0].strip() in ("model name", "Model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    if model is None and shutil.which("lscpu"):
+        for line in sh(["lscpu"]).splitlines():
+            if line.startswith("Model name:"):
+                model = line.split(":", 1)[1].strip()
+                break
+    return f"{model or platform.machine()}, {os.cpu_count()} cores"
+
+
+@contextlib.contextmanager
+def numpy_map_builds():
+    """``MapData.build`` through the numpy map builds (the native map
+    compiler's plain versions) inside the block."""
+    import functools
+    from mcl_3dl_tpu_torch.map import distance_field, occupancy
+
+    saved = distance_field.build_field_codes, occupancy.build_occupancy_arrays
+    distance_field.build_field_codes = functools.partial(saved[0],
+                                                         native=False)
+    occupancy.build_occupancy_arrays = functools.partial(saved[1],
+                                                         native=False)
+    try:
+        yield
+    finally:
+        distance_field.build_field_codes, occupancy.build_occupancy_arrays = saved
+
+
+def map_phase(card):
+    """Phase 2's map build: the native map compiler (g++ at first use)
+    against its numpy plain version, on the host.  The flagship world
+    through ``MapData.build`` (labels 0-2 from a seed with
+    ``filter_label_max`` 1, so the beam field is a second build; the
+    occupancy grid at the default DDA cell), native and numpy: ``df``,
+    ``df_beam`` and the occupancy arrays byte-equal.  Then one field of
+    ``worlds.make_room(-40, 40, -40, 40, grid=0.05)`` (cell 0.1, trunc
+    0.3), native and numpy (timed once): bytes equal."""
+    import torch
+    from mcl_3dl_tpu_torch import worlds
+    from mcl_3dl_tpu_torch.config import BeamParams, Params
+    from mcl_3dl_tpu_torch.map.distance_field import build_field_codes
+    from mcl_3dl_tpu_torch.map.map_data import MapData
+    from mcl_3dl_tpu_torch.ops import build
+
+    lib = build.build_map(verbose=True)
+    built = (f"built by g++ in {build.seconds['map']:.2f} s"
+             if "map" in build.seconds else "already built")
+    print(f"phase 2 map builder: {lib.parent.name}/{lib.name} {built}, on "
+          f"{host_cpu()} {card}", flush=True)
+    pts = worlds.world_map()
+    labels = np.random.default_rng(7).integers(0, 3, len(pts)).astype(
+        np.uint32)
+    params = Params(beam=BeamParams(filter_label_max=1))
+    maps, secs = {}, {}
+    for name in ("native", "numpy", "native"):
+        with (numpy_map_builds() if name == "numpy"
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            m = MapData.build(pts, params, labels, device="cuda")
+            torch.cuda.synchronize()
+            secs.setdefault(name, []).append(time.perf_counter() - t0)
+        maps[name] = m
+    a, b = maps["native"], maps["numpy"]
+    assert a.df_beam is not a.df and b.df_beam is not b.df
+    for x, y, what in ((a.df.field, b.df.field, "df"),
+                       (a.df_beam.field, b.df_beam.field, "df_beam"),
+                       (a.df.packed, b.df.packed, "df corner pack"),
+                       (a.occ.occupied, b.occ.occupied, "occupied"),
+                       (a.occ.min_label, b.occ.min_label, "min_label"),
+                       (a.occ.rep_point, b.occ.rep_point, "rep_point")):
+        assert torch.equal(x, y), f"map build: native {what} != numpy"
+    print(f"phase 2 map flagship: {len(pts)} points -> {len(a.points)} after "
+          f"the voxel grid, df {tuple(a.df.shape)}, occupancy "
+          f"{tuple(a.occ.shape)}; MapData.build native "
+          f"{secs['native'][0]:.3f} s (then {secs['native'][1]:.3f} s), numpy "
+          f"{secs['numpy'][0]:.3f} s; df, df_beam, corner pack and occupancy "
+          f"arrays byte-equal on {host_cpu()} {card}", flush=True)
+    del maps, a, b
+
+    room = worlds.make_room(-40.0, 40.0, -40.0, 40.0, grid=0.05)
+    t0 = time.perf_counter()
+    got, origin = build_field_codes(room, 0.1, 0.3)
+    t1 = time.perf_counter()
+    want, want_origin = build_field_codes(room, 0.1, 0.3, native=False)
+    t2 = time.perf_counter()
+    assert np.array_equal(got, want) and np.array_equal(origin, want_origin), \
+        "large map: native field != numpy"
+    print(f"phase 2 map large room: {len(room)} points, one field "
+          f"{got.shape} (cell 0.1, trunc 0.3): native {t1 - t0:.3f} s, numpy "
+          f"{t2 - t1:.3f} s, byte-equal, on {host_cpu()} {card}", flush=True)
+
+
+def local_edges(card, k3):
+    """K3 held bit-equal to its plain version at the edges of its forms:
+    N 128 with K 1 and N 384 with K 96 (the tiled form), and the 1M case
+    ``k3`` (a ``local_case``) through a lidx view that is not 16-byte
+    aligned (the scalar form).  These launches are not counted."""
+    import torch
+    from mcl_3dl_tpu_torch.ops import local_gather as olg
+
+    (tables, lidx), kw, _, _ = k3
+    rng = np.random.default_rng(11)
+    cases = {}
+    for n, k in ((128, 1), (384, 96)):
+        cases[f"N {n} K {k}"] = (tables[:k], torch.tensor(
+            rng.integers(0, tables[0].numel(), (k, n)), dtype=torch.int32,
+            device=lidx.device))
+    flat = torch.empty(lidx.numel() + 1, dtype=torch.int32,
+                       device=lidx.device)
+    flat[1:] = lidx.reshape(-1)
+    unaligned = flat[1:].view(lidx.shape)
+    assert unaligned.data_ptr() % 16 != 0
+    cases[f"N {lidx.shape[1]} K {lidx.shape[0]} unaligned"] = (tables,
+                                                               unaligned)
+    for name, (tab, idx) in cases.items():
+        got = olg.local_score(tab, idx, **kw)
+        want = olg.local_score_plain(tab, idx, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"K3 at {name}: kernel != plain"
+        print(f"phase 4 local_score at {name}: bit-equal to plain, "
+              f"{int((got[1] > 0).sum())} particles matched {card}",
+              flush=True)
+    del flat, unaligned
+
+
 K1_SRC = ("mcl_3dl_tpu_torch/csrc/grouped.cu",
           "mcl_3dl_tpu/ops/grouped.py:778 (_like_kernel)")
 K2_SRC = ("mcl_3dl_tpu_torch/csrc/grouped.cu",
@@ -254,6 +398,23 @@ def model_layers(eng, inp, k1_ms, k2_ms):
         "beam overflow rescore": time_ms(beam_rescore, 5),
         "measure_models total": time_ms(
             lambda: eng._measure_models(*group_args), 5),
+    }
+
+
+def tier1_split(eng, inp, k3_ms):
+    """The likelihood's tier 1 at the main path's final state, each piece
+    timed alone (``time_ms``, 5 runs; K3's time given): ms by piece."""
+    from mcl_3dl_tpu_torch.models.likelihood import box_queries, box_tables
+    from mcl_3dl_tpu_torch.tools import time_ms
+
+    df, pos = eng.map.df, eng.pstate.pos
+    iq, lo, _ = box_queries(df, pos, inp.rmat, inp.like_pts)
+    return {
+        "box_queries": time_ms(
+            lambda: box_queries(df, pos, inp.rmat, inp.like_pts), 5),
+        "box_tables": time_ms(
+            lambda: box_tables(df, iq, lo, inp.like_valid), 5),
+        "K3 local_score": k3_ms,
     }
 
 
@@ -570,7 +731,6 @@ def global_phase(card, report):
     512-capacity step it scored, each against its plain version on the
     step's state with a fresh scan."""
     import torch
-    from mcl_3dl_tpu_torch import worlds
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
     from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
@@ -595,27 +755,13 @@ def global_phase(card, report):
     assert out["global"]["seeds"] >= SEEDS_MIN, out["global"]["seeds"]
     assert all(n > 0 for n in launches.values()), launches
 
-    p = eng.params
-    lp = p.likelihood
+    lp = eng.params.likelihood
     df = eng.map.df
-    origin = np.array([0.0, 0.0, worlds.SENSOR_Z])
-    scan = worlds.scan(np.random.default_rng(2), recovery.CLOUD_POINTS)
-    _, cloud = eng.prepare_cloud(scan, np.zeros(len(scan), np.int64),
-                                 origin[None].astype(np.float32))
-
-    def inputs(row):
-        st = row["before"]
-        (pts, valid, bpts, blab, bvalid, _, _) = eng.sample_points(
-            *cloud[:3], global_mode=True, global_slots=row["slots"],
-            n_active=st.n_active)
-        rmat, g_like, _ = eng.group(st.pos, st.rot, st.active_mask(), df,
-                                    eng.map.df_beam, pts, valid, bpts, blab,
-                                    bvalid, cloud[3], use_beam=False)
-        return st, pts, valid, rmat, g_like
-
+    cloud = gp.recovery_cloud(eng)
     k1_row = max((r for r in rows if r["tier_like"] == 0),
                  key=lambda r: r["capacity"])
-    st, pts, valid, _, (stats, layout, lo, _) = inputs(k1_row)
+    st, pts, valid, _, (stats, layout, lo, _) = gp.recovery_step_inputs(
+        eng, k1_row, cloud)
     if layout is None:
         layout = og.build_layout(stats, og.default_overflow_cap(st.capacity))
     args, kw, bnd, kept = gp.like_case(df, lp, stats, layout, lo, pts, valid)
@@ -628,10 +774,8 @@ def global_phase(card, report):
            kept, phase=7)
     del args, layout, stats
 
-    k3_row = next(r for r in rows
-                  if r["tier_like"] == 1 and r["capacity"] == 512)
-    st, pts, valid, rmat, _ = inputs(k3_row)
-    args, kw, bnd, kept = gp.local_case(df, lp, st.pos, rmat, pts, valid)
+    (args, kw, bnd, kept), k3_row = gp.global_local_case(eng, rows, cloud)
+    st = k3_row["before"]
     print(f"phase 7 K3 at capacity {st.capacity}, {int(st.n_active)} active,"
           f" {k3_row['slots']} slots {card}", flush=True)
     report("local_score_global", "mcl_3dl_tpu_torch/csrc/local_gather.cu",
@@ -886,6 +1030,7 @@ def main() -> int:
           f"host compiler {secs.get('host', 0.0):.2f} s for the binding "
           f"{build.BINDING}, in parallel; link {secs.get('link', 0.0):.2f} s;"
           f" operators torch.ops.{build.namespace()})", flush=True)
+    map_phase(card)
 
     # ---- phase 3: the main path through the public entry points
     eng = gp.engine()
@@ -949,6 +1094,7 @@ def main() -> int:
                 lambda: olg.local_score(*k3, **kw3),
                 lambda: olg.local_score_plain(*k3, **kw3),
                 *k3_bound, launches["local"], k3_kept)
+    local_edges(card, (k3, kw3, k3_bound, k3_kept))
     del k3
 
     # ---- phase 5: per-layer split of a steady step (CUDA events, 5 runs)
@@ -958,6 +1104,9 @@ def main() -> int:
         step_s * 1e3 - layers["measure_models total"])
     print("phase 5 split (ms): " + "; ".join(
         f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
+    tier1 = tier1_split(eng, inp, kms["local_score"])
+    print("phase 5 tier-1 split at 1M x 96 (ms): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in tier1.items()) + f" {card}", flush=True)
 
     # steady-state push_cloud time over STEADY_STEPS more scans
     times, tiers = [], set()

@@ -222,6 +222,10 @@ Tensor beam_pen(const Tensor& gp_A, const Tensor& tile_group,
 
 // ---- K3 (local_gather.cu)
 
+// score and match are the two rows of one allocation, so each is 16-byte
+// aligned where n % 4 == 0 (the kernel's vector stores); mdm, mdf and mw
+// come in as the caller's doubles and round to float here, as np.float32
+// rounds them
 std::tuple<Tensor, Tensor> local_score(const Tensor& tables,
                                        const Tensor& lidx, double mdm,
                                        double mdf, double mw) {
@@ -231,16 +235,16 @@ std::tuple<Tensor, Tensor> local_score(const Tensor& tables,
   check(tables, "tables", F32, nullptr, &dev);
   check(lidx, "lidx", I32, &s_idx, &dev);
   c10::cuda::CUDAGuard guard(dev);
-  Tensor score = at::empty({n}, tables.options());
-  Tensor match = at::empty({n}, tables.options());
+  Tensor out = at::empty({2, n}, tables.options());
   const int64_t tab_len = kk ? tables.numel() / kk : 0;
+  float* score = ptr<float>(out);
   launched(mcl_local_score(ptr<const float>(tables), ptr<const int>(lidx),
-                           ptr<float>(score), ptr<float>(match),
-                           i32(n, "particles"), i32(kk, "points"),
-                           i32(tab_len, "table length"), (float)mdm,
-                           (float)mdf, (float)mw, stream_of(tables)),
+                           score, score + n, i32(n, "particles"),
+                           i32(kk, "points"), i32(tab_len, "table length"),
+                           (float)mdm, (float)mdf, (float)mw,
+                           stream_of(tables)),
            "mcl_local_score");
-  return {score, match};
+  return {out.select(0, 0), out.select(0, 1)};
 }
 
 // ---- G1-G10 (gather_bench.cu)

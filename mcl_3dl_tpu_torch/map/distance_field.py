@@ -9,7 +9,8 @@ then becomes a gather + compare on the device.
 
 The build is the JAX package's numpy build (``distance_field.py``,
 numpy path) restated line for line, so the u8 field and the corner pack
-are byte-identical to it.
+are byte-identical to it; its splat runs in the native map compiler
+(``map/native.py``), which gives the numpy splat's bytes.
 
 Two samplers: nearest cell (one gather a query) and trilinear (the
 eight corners of the cell cube around the query).  With the corner pack
@@ -25,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mcl_3dl_tpu_torch.map.native import build_distance_field_native
 from mcl_3dl_tpu_torch.math import f32
 
 ZW = 128        # z lanes of one local-table row (ops/grouped.py)
@@ -173,13 +175,16 @@ def _finish(q3d, origin, cell, trunc, weights, device, pack=False):
 
 
 def build_field_codes(points, cell, trunc, weights=(1.0, 1.0, 1.0),
-                      grid=None):
-    """Numpy build of the u8 field: ``(codes [nx, ny, nz], origin [3])``.
+                      grid=None, native=True):
+    """The u8 field: ``(codes [nx, ny, nz], origin [3])``.
 
     Exact within the truncation radius: every cell whose weighted
     distance to some point is below ``trunc`` gets the true minimum.
     ``grid``: optional ``(origin [3], (nx, ny, nz))`` in weighted space,
     so the label-filtered beam field shares the likelihood field's grid.
+    The splat runs in the native map compiler (``map/native.py``), or with
+    ``native=False`` in numpy, its plain version; both give the same
+    bytes.
     """
     w = np.asarray(tuple(float(x) for x in weights), dtype=np.float64)
     points = np.asarray(points, dtype=np.float64).reshape(-1, 3) * w
@@ -198,6 +203,18 @@ def build_field_codes(points, cell, trunc, weights=(1.0, 1.0, 1.0),
         dims = np.ceil((max_p - origin) / cell).astype(np.int64) + 1
         nx, ny, nz = (int(d) for d in dims)
 
+    if native:
+        field_flat = build_distance_field_native(
+            points, cell, trunc, origin, (nx, ny, nz)).reshape(-1)
+    else:
+        field_flat = _splat_numpy(points, cell, trunc, origin, (nx, ny, nz))
+    q = np.clip(np.round(field_flat / trunc * 255.0), 0, 255).astype(np.uint8)
+    return q.reshape(nx, ny, nz), origin
+
+
+def _splat_numpy(points, cell, trunc, origin, dims):
+    """The numpy splat: the flat float32 field of ``build_field_codes``."""
+    nx, ny, nz = dims
     field_flat = np.full(nx * ny * nz, np.float32(trunc), dtype=np.float32)
     base = np.round((points - origin) / cell).astype(np.int64)
     base_flat = (base[:, 0] * ny + base[:, 1]) * nz + base[:, 2]
@@ -230,9 +247,7 @@ def build_field_codes(points, cell, trunc, weights=(1.0, 1.0, 1.0),
                 const = (dx * ny + dy) * nz + dz
                 _segment_min_scatter(field_flat, base_flat[sel] + const,
                                      dist[sel].astype(np.float32))
-
-    q = np.clip(np.round(field_flat / trunc * 255.0), 0, 255).astype(np.uint8)
-    return q.reshape(nx, ny, nz), origin
+    return field_flat
 
 
 def build_distance_field(points, cell, trunc, weights=(1.0, 1.0, 1.0),

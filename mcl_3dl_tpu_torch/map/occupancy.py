@@ -14,7 +14,9 @@ against the reference's perpendicular-distance rule
 points are exact.
 
 The build is the JAX package's numpy build (``map/occupancy.py``)
-restated line for line, so the grid equals it value for value.
+restated line for line, so the grid equals it value for value; it runs
+in the native map compiler (``map/native.py``), which gives the numpy
+build's bytes.
 ``min_label`` is held as int64 (the uint32 labels, 0xFFFFFFFF where
 empty): torch compares no uint32 tensors on CUDA.
 """
@@ -26,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from mcl_3dl_tpu_torch.map.native import build_occupancy_rep_native
 from mcl_3dl_tpu_torch.math import f32
 
 # representative points stored per voxel; slots beyond the voxel's point
@@ -71,12 +74,15 @@ class OccupancyGrid:
         return occ, label, pos
 
 
-def build_occupancy_arrays(points, cell: float, labels=None):
-    """Numpy build: ``(occupied [nx, ny, nz] bool, min_label uint32,
-    rep_point [nx, ny, nz, REP_POINTS, 3] uint8, origin [3] float64)``.
+def build_occupancy_arrays(points, cell: float, labels=None, native=True):
+    """``(occupied [nx, ny, nz] bool, min_label uint32, rep_point
+    [nx, ny, nz, REP_POINTS, 3] uint8, origin [3] float64)``.
 
     Representatives: ``REP_POINTS`` stride samples of the voxel's point
-    list (sorted by voxel, stable) including its first and last member."""
+    list (sorted by voxel, stable) including its first and last member.
+    Built by the native map compiler (``map/native.py``), or with
+    ``native=False`` in numpy, its plain version; both give the same
+    bytes."""
     points = np.asarray(points, dtype=np.float64).reshape(-1, 3)
     if labels is None:
         labels = np.zeros((points.shape[0],), np.uint32)
@@ -90,6 +96,11 @@ def build_occupancy_arrays(points, cell: float, labels=None):
     # +1 as raycast_using_dda.h:179 (size = span / cell + 1)
     dims = ((points.max(axis=0) - origin) / cell).astype(np.int64) + 1
     nx, ny, nz = (int(d) for d in dims)
+    if native:
+        occupied, min_label, rep_point = build_occupancy_rep_native(
+            points, labels, cell, origin, dims, REP_POINTS)
+        return (occupied.reshape(nx, ny, nz), min_label.reshape(nx, ny, nz),
+                rep_point.reshape(nx, ny, nz, REP_POINTS, 3), origin)
     idx = np.clip(np.floor((points - origin) / cell).astype(np.int64), 0,
                   dims - 1)
     flat = (idx[:, 0] * ny + idx[:, 1]) * nz + idx[:, 2]

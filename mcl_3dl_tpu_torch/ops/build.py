@@ -13,6 +13,12 @@ the sources, the flags and torch's version, and is built at first use.
 It needs ``nvcc``, a host C++ compiler and a CUDA build of torch; without
 them, or when the library does not load, ``build``/``library`` raise.
 
+``build_map`` builds the host map compiler (``csrc/map_builder.cpp``, a
+plain C library loaded with ctypes by ``map/native.py``) with the host
+compiler alone, into ``build/torch_kernels/map_<hash>/``, keyed by the
+source, the flags and the compiler's version; a failed build raises with
+the compiler's output.
+
 ``-fmad=false`` keeps every ``a*b + c`` unfused, so the kernels evaluate
 the affine query and the score with the same roundings as the plain
 PyTorch versions (eager torch never contracts across operations).
@@ -41,10 +47,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the standard torch's own extension builder compiles its headers with
 HOST_FLAGS = ("-std=c++20", "-O2", "-fPIC")
 TORCH_LIBS = ("torch", "torch_cpu", "torch_cuda", "c10", "c10_cuda")
+MAP_SOURCE = "map_builder.cpp"
+# no -march and no contraction: the map builder's roundings are the numpy
+# build's on every host (csrc/map_builder.cpp)
+MAP_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-pthread", "-ffp-contract=off",
+             "-shared")
 
 _lib = None          # the loaded namespace, set by ``library``
 _ops = {}            # operator name -> its OpOverload, filled by ``op``
-seconds = {}         # the last build's wall seconds: "nvcc", "host", "link"
+# the last build's wall seconds: "nvcc", "host", "link" (``build``) and
+# "map" (``build_map``)
+seconds = {}
 
 
 def _find(tool: str, default: str, what: str) -> str:
@@ -135,7 +148,7 @@ def _run(cmds, verbose):
         if out.returncode:
             failed.append(f"{label}:\n{out.stdout}")
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise RuntimeError("build failed: " + "\n".join(failed))
     return {label: secs for label, secs, _ in runs}
 
 
@@ -143,7 +156,8 @@ def build(verbose: bool = False) -> Path:
     """Compile the kernels and the binding unless this hash is already
     built; returns the library path.  Sets ``seconds`` (empty when the
     library was there)."""
-    seconds.clear()
+    for key in ("nvcc", "host", "link"):
+        seconds.pop(key, None)
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / "libmcl3dl_kernels.so"
     if lib.exists():
@@ -178,3 +192,40 @@ def op(name: str):
     if fn is None:
         fn = _ops[name] = getattr(library(), name).default
     return fn
+
+
+def _map_digest(cxx: str) -> str:
+    """The map library's key: its source, the flags and ``cxx --version``
+    (raises with the output when the compiler does not answer)."""
+    out = subprocess.run([cxx, "--version"], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    if out.returncode:
+        raise RuntimeError(f"map builder: {cxx} --version failed "
+                           f"(exit {out.returncode}):\n{out.stdout}")
+    h = hashlib.sha256(" ".join(MAP_FLAGS).encode())
+    h.update(out.stdout.encode())
+    h.update((CSRC / MAP_SOURCE).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_map(verbose: bool = False) -> Path:
+    """Compile ``csrc/map_builder.cpp`` with the host compiler unless this
+    hash is already built; returns the library path.  Several processes may
+    build at once: each compiles in a directory of its own and moves its
+    library into place.  Sets ``seconds["map"]`` (popped when the library
+    was there)."""
+    seconds.pop("map", None)
+    cxx = _host_cxx()
+    out_dir = BUILD_ROOT / f"map_{_map_digest(cxx)}"
+    lib = out_dir / "libmcl3dl_map.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    tmp_lib = work / lib.name
+    argv = [cxx, *MAP_FLAGS, str(CSRC / MAP_SOURCE), "-o", str(tmp_lib)]
+    seconds["map"] = _run([(f"host {MAP_SOURCE}", argv)], verbose)[
+        f"host {MAP_SOURCE}"]
+    os.replace(tmp_lib, lib)
+    shutil.rmtree(work, ignore_errors=True)
+    return lib

@@ -47,13 +47,13 @@ def local_score(tables, lidx, *, match_dist_min, match_dist_flat,
     ``tables`` [K, R, 128] f32 local distance tables; ``lidx`` [K, N] i32
     flat cell indices in [0, R*128).  Point validity is folded into the
     tables by the caller (invalid point => all-trunc table)."""
-    kw = dict(match_dist_min=match_dist_min, match_dist_flat=match_dist_flat,
-              match_weight=match_weight)
     if not tables.is_cuda:
-        return local_score_plain(tables, lidx, **kw)
+        return local_score_plain(tables, lidx, match_dist_min=match_dist_min,
+                                 match_dist_flat=match_dist_flat,
+                                 match_weight=match_weight)
+    # the operator rounds the three to float32 itself, as ``f32`` does
     score, match = build.op("local_score")(
-        tables, lidx, f32(match_dist_min), f32(match_dist_flat),
-        f32(match_weight))
+        tables, lidx, match_dist_min, match_dist_flat, match_weight)
     local_score.launches += 1
     return score, match
 

@@ -15,7 +15,10 @@ world, a coarse initial pose measured once, then the tracking spread and
 ten scans to tiers 0/0.
 
 K1, K2 and then K3 (``local_case``: 96 points x 1M particles on this
-state's tier-1 box tables) are timed.  In each of ``--pairs`` rounds
+state's tier-1 box tables) are timed, and K3 once more at the global
+shape (``global_local_case``: the 512-capacity, 16-point step of the
+global-recovery episodes that ``chip_smoke.py`` phase 7 drives, with the
+device floor of one launch beside it).  In each of ``--pairs`` rounds
 every build is timed once (``time_ms``, the median of 25 launches, and
 ``tools.device_ms``, a captured graph of 25), in list order in even
 rounds and reversed in odd ones.  Printed per kernel and build: the
@@ -190,6 +193,41 @@ def local_case(df, lp, pos, rmat, points, valid):
             torch.arange(n, device=lidx.device))
 
 
+def recovery_cloud(eng):
+    """The fresh scan that phase 7 of ``chip_smoke.py`` scores a recovery
+    step's state with, prepared by ``eng`` (``default_rng(2)``)."""
+    from mcl_3dl_tpu_torch.tools import recovery
+
+    origin = np.array([0.0, 0.0, worlds.SENSOR_Z])
+    scan = worlds.scan(np.random.default_rng(2), recovery.CLOUD_POINTS)
+    _, cloud = eng.prepare_cloud(scan, np.zeros(len(scan), np.int64),
+                                 origin[None].astype(np.float32))
+    return cloud
+
+
+def recovery_step_inputs(eng, row, cloud):
+    """The likelihood's inputs at a recovery step (a row of
+    ``recovery.decay`` run with ``before_step=lambda e: e.pstate``) on the
+    prepared ``cloud``: ``(state, points, valid, rmat, grouped)``."""
+    st = row["before"]
+    (pts, valid, bpts, blab, bvalid, _, _) = eng.sample_points(
+        *cloud[:3], global_mode=True, global_slots=row["slots"],
+        n_active=st.n_active)
+    rmat, g_like, _ = eng.group(st.pos, st.rot, st.active_mask(), eng.map.df,
+                                eng.map.df_beam, pts, valid, bpts, blab,
+                                bvalid, cloud[3], use_beam=False)
+    return st, pts, valid, rmat, g_like
+
+
+def global_local_case(eng, rows, cloud):
+    """K3 at the 512-capacity step that K3 scored among the recovery
+    ``rows``: ``(local_case, row)``."""
+    row = next(r for r in rows if r["tier_like"] == 1 and r["capacity"] == 512)
+    st, pts, valid, rmat, _ = recovery_step_inputs(eng, row, cloud)
+    return local_case(eng.map.df, eng.params.likelihood, st.pos, rmat, pts,
+                      valid), row
+
+
 COPY_MODULES = ("grouped", "local_gather", "gather_bench")
 
 
@@ -273,10 +311,11 @@ def rows_touched(A, tile_group, meta, pts_fp, skip, every=8):
     return float(n.mean()), float(torch.quantile(n, 0.9))
 
 
-def kernel_cases(inp, k3=None):
-    """K1 and K2 at ``inp`` (``kernel_inputs``), and K3 at ``k3`` (a
-    ``local_case``) where given: ``{name: (run(copy), plain(), (bytes,
-    ops), kept)}``, ``run`` through a copy's modules (``load_copy``)."""
+def kernel_cases(inp, k3=None, k3_global=None):
+    """K1 and K2 at ``inp`` (``kernel_inputs``), and K3 at ``k3`` and at
+    ``k3_global`` (each a ``local_case``) where given: ``{name: (run(copy),
+    plain(), (bytes, ops), kept)}``, ``run`` through a copy's modules
+    (``load_copy``)."""
     cases = {
         "like_score": (
             lambda c: c.grouped.grouped_like_score(*inp.like, **inp.like_kw),
@@ -287,11 +326,13 @@ def kernel_cases(inp, k3=None):
             lambda: (og.beam_pen_plain(*inp.beam, **inp.beam_kw),),
             inp.beam_bound, inp.kept),
     }
-    if k3 is not None:
-        args, kw, k3_bound, kept = k3
-        cases["local_score"] = (
-            lambda c: c.local_gather.local_score(*args, **kw),
-            lambda: olg.local_score_plain(*args, **kw), k3_bound, kept)
+    for name, case in (("local_score", k3), ("local_score_global", k3_global)):
+        if case is not None:
+            args, kw, k3_bound, kept = case
+            cases[name] = (
+                lambda c, a=args, k=kw: c.local_gather.local_score(*a, **k),
+                lambda a=args, k=kw: olg.local_score_plain(*a, **k),
+                k3_bound, kept)
     return cases
 
 
@@ -367,7 +408,22 @@ def main(argv=None):
     # K3 at 96 points x 1M particles, on this state's tier-1 box tables
     k3 = local_case(eng.map.df, eng.params.likelihood, eng.pstate.pos,
                     inp.rmat, inp.like_pts, inp.like_valid)
-    return compare(kernel_cases(inp, k3), others, a.pairs, where)
+    # K3 at the global shape, 512 particles x 16 points: the recovery
+    # episodes seeded as phase 7 seeds them
+    from mcl_3dl_tpu_torch.tools import recovery
+
+    geng = recovery.engine("cuda")
+    out = recovery.run(geng, np.random.default_rng(1),
+                       before_step=lambda e: e.pstate, log=lambda s: None)
+    rows = [r for ep in out.values() for r in ep["rows"]]
+    k3_global, row = global_local_case(geng, rows, recovery_cloud(geng))
+    one = torch.empty(1, device="cuda")
+    print(f"local_score_global: capacity {row['capacity']}, {row['slots']} "
+          f"slots, lidx {tuple(k3_global[0][1].shape)}; the device floor of a"
+          f" launch by the same graph timing (a one-element fill_): "
+          f"{device_ms(lambda: one.fill_(0.0)):.4f} ms a call [{where}]",
+          flush=True)
+    return compare(kernel_cases(inp, k3, k3_global), others, a.pairs, where)
 
 
 if __name__ == "__main__":

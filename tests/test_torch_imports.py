@@ -61,12 +61,18 @@ def test_sources_import_no_jax(path):
             f"{path.relative_to(ROOT)} imports {name}")
 
 
+# the host map compiler, a plain C library with no kernel (csrc/map_builder.cpp)
+MAP_BINDING = PORT / "map" / "native.py"
+
+
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(p for p in PORT.rglob("*.py") if p != MAP_BINDING)
+    + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_launch_nothing_through_ctypes(path):
     """The kernels launch through torch operators (``ops/build.py`` loads
-    them with ``torch.ops.load_library``): no module imports ``ctypes``."""
+    them with ``torch.ops.load_library``): no module imports ``ctypes``
+    but the host map compiler's binding, ``map/native.py``."""
     for name in _imports(path):
         assert name.split(".")[0] != "ctypes", (
             f"{path.relative_to(ROOT)} imports {name}")
@@ -78,6 +84,19 @@ def test_kernel_library_is_loaded_as_torch_operators():
     text = (PORT / "ops" / "build.py").read_text()
     assert "torch.ops.load_library" in text and ".default" in text
     assert "CDLL" not in text and "argtypes" not in text
+
+
+def test_map_binding_loads_only_the_ports_library():
+    """``map/native.py`` binds the library ``ops/build.py::build_map``
+    builds from the port's ``csrc/map_builder.cpp``, never the JAX
+    package's ``native/`` build."""
+    for path in (MAP_BINDING, PORT / "ops" / "build.py"):
+        text = path.read_text()
+        assert "libmcl3dl_native" not in text and "make" not in text.split()
+        assert "native/" not in text.replace("map/native", "")
+    text = MAP_BINDING.read_text()
+    assert "build.build_map()" in text and "ctypes.CDLL" in text
+    assert "map_builder.cpp" in (PORT / "ops" / "build.py").read_text()
 
 
 def test_engine_defaults_to_cuda():
@@ -106,6 +125,7 @@ print("IMPORTED:" + mod.__name__)
     "mcl_3dl_tpu_torch.tools.tier3", "mcl_3dl_tpu_torch.tools.run_tier3",
     "mcl_3dl_tpu_torch.tools.recovery",
     "mcl_3dl_tpu_torch.map.occupancy", "mcl_3dl_tpu_torch.map.distance_field",
+    "mcl_3dl_tpu_torch.map.native",
     "mcl_3dl_tpu_torch.models.samplers", "mcl_3dl_tpu_torch.models.landmark",
     "mcl_3dl_tpu_torch.io.pcd", "mcl_3dl_tpu_torch.checkpoint",
     "mcl_3dl_tpu_torch.profiling", "mcl_3dl_tpu_torch.tools.run_replay",

@@ -268,6 +268,39 @@ def test_local_kernel_box_tables_match_plain(cuda, k):
     assert float(got[1].sum()) > 0
 
 
+# (N, K, lidx offset in elements): K3's forms at their edges.  Below
+# SMALL_N the tiled form (K above its 128-point tile takes two rounds);
+# from SMALL_N the 4-particle vector form with a ragged last block and K
+# not a multiple of the unroll, and the scalar form for a lidx view that
+# is not 16-byte aligned or an N that is not a multiple of 4
+_SMALL_N = 1 << 17
+_LOCAL_EDGES = {"tiled_n128_k1": (128, 1, 0), "tiled_n384_k96": (384, 96, 0),
+                "tiled_n384_k130": (384, 130, 0),
+                "vec4_ragged": (_SMALL_N + 384, 13, 0),
+                "scalar_unaligned": (_SMALL_N + 384, 13, 1),
+                "scalar_n_odd": (_SMALL_N + 3, 9, 0)}
+
+
+@pytest.mark.parametrize("case", list(_LOCAL_EDGES))
+def test_local_kernel_edges_match_plain(cuda, case):
+    n, k, off = _LOCAL_EDGES[case]
+    rng = np.random.default_rng(n + k)
+    R = 128
+    tables = torch.tensor(rng.uniform(0.0, 0.6, (k, R, 128)),
+                          dtype=torch.float32, device=cuda)
+    flat = torch.tensor(rng.integers(0, R * 128, k * n + off),
+                        dtype=torch.int32, device=cuda)
+    lidx = flat[off:].view(k, n)
+    assert (lidx.data_ptr() % 16 == 0) == (off == 0)
+    kw = dict(match_dist_min=MDM, match_dist_flat=MDF, match_weight=MW)
+    got = olg.local_score(tables, lidx, **kw)
+    want = olg.local_score_plain(tables, lidx, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == (n,) and torch.equal(a, b)
+    assert float(got[1].min()) >= 0 and float(got[1].max()) > 0
+
+
 def test_wrapper_refuses_wrong_dtype(cuda):
     tables = torch.zeros((2, 1, 128), device=cuda)
     lidx = torch.zeros((2, 128), dtype=torch.int64, device=cuda)
