@@ -99,6 +99,15 @@ time):
    machinery's cost in ms (the two timed in turns).  Its launch counts go
    on phase 4's K1-K3 rows as ``split_launches`` (the same kernels at the
    same shapes, timed once).
+13. the port's tools, each in a child process (its lines echoed, a
+   non-zero exit fails the smoke): the bench (``tools/bench.py
+   --processes 3``, every row: steady, ``push_cloud``, fallback,
+   trilinear, global mode; its steady steps must run K1 and K2 at tiers
+   0/0, and its launch counts go on phase 4's K1-K3 rows as
+   ``bench_launches``), the small-count sweep (``tools/exp_small.py``, 64
+   / 512 / 16,384 particles, rows also in ``chiprun_out/exp_small.jsonl``)
+   and the raycast harness (``tools/benchmark_raycast.py``).  It runs
+   after the profiled step: the children are processes of their own.
 
 Phase 6 ends with where a lone call of G3 and G4 spends its ``time_ms``
 (the kernel alone on an idle card, and what the host adds before it
@@ -120,6 +129,7 @@ import json
 import os
 import platform
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -673,6 +683,53 @@ def split_phase(eng, scan, card):
     return launches
 
 
+TOOLS = (
+    ("bench", ("mcl_3dl_tpu_torch.tools.bench", "--processes", "3"), 600),
+    ("exp_small", ("mcl_3dl_tpu_torch.tools.exp_small", "--out",
+                   "chiprun_out/exp_small.jsonl"), 300),
+    ("benchmark_raycast", ("mcl_3dl_tpu_torch.tools.benchmark_raycast",),
+     300),
+)
+
+
+def tools_phase(card):
+    """Phase 13: each of ``TOOLS`` in a child process (``python -m``, with
+    its time limit in seconds); every line it writes is echoed, and a
+    child that exits non-zero raises.  Returns the bench's metric line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    stdout = {}
+    for name, args, limit in TOOLS:
+        t0 = time.perf_counter()
+        # a session of its own: on a timeout the bench's children go too
+        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=root,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=limit)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+        for stream, tag in ((err, " (stderr)"), (out, "")):
+            for line in stream.splitlines():
+                print(f"phase 13 {name}{tag}: {line}", flush=True)
+        print(f"phase 13 {name}: exit {proc.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s {card}", flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"phase 13 {name} exited {proc.returncode}")
+        stdout[name] = out.splitlines()
+    bench = json.loads(stdout["bench"][-1])
+    ex = bench["extra"]
+    assert bench["metric"] == "particle_likelihood_evals_per_sec_chip", bench
+    assert (ex["tier_like"], ex["tier_beam"]) == (0, 0), ex["steady_tiers"]
+    for launches in ex["launches_steady"]:
+        assert launches["like"] > 0 and launches["beam"] > 0, launches
+    assert len(stdout["exp_small"]) == 3
+    assert sum("casts" in line for line in stdout["benchmark_raycast"]) == 4
+    return bench
+
+
 def lookup_phase(card):
     """Phase 6: drive the three lookup tools with the launch counts zeroed
     (each times its kernels and library calls, 25 launches a median, and
@@ -1156,6 +1213,14 @@ def main() -> int:
     # phase 5's profiled step comes last: after a torch.profiler session
     # the host path of every later launch reads slower, phase 6's included
     profile_step(eng, scan, origin, card)
+
+    # ---- phase 13: the bench, the small-count sweep, the raycast harness
+    bench = tools_phase(card)
+    for r in results:          # the bench's steady steps, first process
+        key = {"like_score": "like", "beam_pen": "beam",
+               "local_score": "local"}.get(r["name"])
+        if key:
+            r["bench_launches"] = bench["extra"]["launches_steady"][0][key]
 
     print(json.dumps({"kernels": results}))
     print(smi)

@@ -675,7 +675,7 @@ class MCL3DL:
                                    beam_slots)
         if p.use_random_sampler_with_normal:
             sw = p.random_sampler_with_normal
-            mean_pos, mean_rot = pf.expectation(state, shard)
+            mean_pos, mean_rot = pf.expectation(state, shard=shard)
             cov = st.covariance6(state, state.prob, mean_pos, mean_rot,
                                  shard)
             direction, amp = normal_weight_direction(

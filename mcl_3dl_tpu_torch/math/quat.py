@@ -48,6 +48,11 @@ def inv(q):
     return conj(q) / torch.sum(q * q, dim=-1, keepdim=True)
 
 
+def norm(q):
+    """Quaternion norm ``|q|``."""
+    return torch.sqrt(torch.sum(q * q, dim=-1))
+
+
 def normalize(q):
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
@@ -143,6 +148,19 @@ def to_axis_angle(q):
 def angle(q):
     """Rotation angle only."""
     return _angle_of(q[..., 3])[0]
+
+
+def weighted(q, s):
+    """Scale the rotation angle by ``s`` (quat.h:168-174)."""
+    axis, ang = to_axis_angle(q)
+    return from_axis_angle(axis, ang * s)
+
+
+def rotate_axis(q, r):
+    """Rotate the rotation axis of ``q`` by quaternion ``r``
+    (quat.h:240-246)."""
+    axis, ang = to_axis_angle(q)
+    return from_axis_angle(rotate(r, axis), ang)
 
 
 def from_frame(forward, up):

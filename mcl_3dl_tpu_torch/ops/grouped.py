@@ -18,7 +18,8 @@ bin grid is read once, at import, from ``MCL_G_YAW``, ``MCL_G_PITCH`` and
 extraction and the per-bin tile padding do not shrink with the particle
 count), with that package's names, defaults and validation; the skip
 granularity is a module constant.  The caller reads the ``fits`` flags on the host and only then
-builds the layout (no empty layout is ever needed).
+builds the layout, so the main path never needs ``empty_layout`` (the JAX
+package's untaken ``lax.cond`` branch); it is kept for the shapes.
 
 Kernel wrappers take the kernel for CUDA tensors, through its operator
 (``csrc/ops.cpp``, which checks the tensors), and the plain version
@@ -270,6 +271,18 @@ def build_layout(stats: GroupStats, cap: int) -> GroupedLayout:
     over_idx = src[start + torch.arange(cap, device=dev)]
     return GroupedLayout(A=a_tiles, dest=dest, tile_group=tile_group,
                          over_idx=over_idx)
+
+
+def empty_layout(n: int, cap: int, device=None) -> GroupedLayout:
+    """A zero layout of ``build_layout``'s shapes and dtypes for ``n``
+    particles and an overflow capacity ``cap``; every ``over_idx`` slot is
+    the sentinel ``n``, which drops every overflow scatter."""
+    nt = (n + G_GROUPS * TILE) // TILE
+    return GroupedLayout(
+        A=torch.zeros((nt, 12, TILE), dtype=torch.float32, device=device),
+        dest=torch.zeros((n,), dtype=torch.int64, device=device),
+        tile_group=torch.zeros((nt,), dtype=torch.int32, device=device),
+        over_idx=torch.full((cap,), n, dtype=torch.int64, device=device))
 
 
 def overflow_transform(A, over_idx, pts):

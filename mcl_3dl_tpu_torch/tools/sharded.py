@@ -173,16 +173,18 @@ def case_step(mesh, dev, particles=None, seed=0):
 
 
 def case_state(mesh, dev, seed=1):
-    """``shard_state`` round trip, and the split ``pf.expectation`` and
-    ``pf.resample`` against one process (the JAX package's
-    ``test_sharding`` cases)."""
+    """``shard_state`` round trip, and the split ``pf.expectation`` (also
+    over the heaviest half), ``pf.resample``, ``resize``, ``max_particle``,
+    ``max_biased`` and ``entropy`` against one process (after the JAX
+    package's ``test_sharding`` cases)."""
     world = mesh.shape["particles"]
     cap = 512 * world
     g = torch.Generator().manual_seed(seed)
     full = st.init_diagonal(torch.randn((cap, 6), generator=g), cap, cap,
                             [0.0, 0.0, 0.0], [0.0, 0.0, 0.0], [1.0] * 6)
     prob = torch.rand((cap,), generator=g)
-    full = full._replace(prob=prob / prob.sum())
+    bias = torch.rand((cap,), generator=torch.Generator().manual_seed(seed))
+    full = full._replace(prob=prob / prob.sum(), prob_bias=bias)
     full = st.ParticleState(*(x.to(dev) for x in full))
     local = shard_state(full, mesh)
     shard = mesh.particle_shard(local.state.capacity)
@@ -190,7 +192,7 @@ def case_state(mesh, dev, seed=1):
     roundtrip = all(torch.equal(a, b[sl]) for a, b in
                     zip(local.state[:-1], full[:-1]))
     m1, q1 = pf.expectation(full)
-    m2, q2 = pf.expectation(local.state, shard)
+    m2, q2 = pf.expectation(local.state, shard=shard)
     u0 = torch.rand((), generator=g).to(dev)
     normals = torch.randn((cap, 6), generator=g).to(dev)
     sigma = torch.full((6,), 0.1, device=dev)
@@ -201,6 +203,10 @@ def case_state(mesh, dev, seed=1):
     z2 = pf.resize(local.state, n, shard)
     best1 = pf.max_particle(full)
     best2 = pf.max_particle(local.state, shard)
+    biased1 = pf.max_biased(full)
+    biased2 = pf.max_biased(local.state, shard)
+    m3, q3 = pf.expectation(full, pass_ratio=0.5)
+    m4, q4 = pf.expectation(local.state, pass_ratio=0.5, shard=shard)
     return dict(
         rank=mesh.rank, roundtrip=roundtrip,
         mean_err=float(max((m1 - m2).abs().max(), (q1 - q2).abs().max())),
@@ -208,7 +214,13 @@ def case_state(mesh, dev, seed=1):
         resample_prob_equal=bool(torch.equal(r1.prob[sl], r2.prob)),
         resize_err=float((z1.pos[sl] - z2.pos).abs().max()),
         resize_prob_equal=bool(torch.equal(z1.prob[sl], z2.prob)),
-        best_equal=all(torch.equal(best1[k], best2[k]) for k in best1))
+        best_equal=all(torch.equal(best1[k], best2[k]) for k in best1),
+        biased_equal=all(torch.equal(biased1[k], biased2[k])
+                         for k in biased1),
+        ratio_mean_err=float(max((m3 - m4).abs().max(),
+                                 (q3 - q4).abs().max())),
+        entropy_err=float((pf.entropy(full)
+                           - pf.entropy(local.state, shard)).abs()))
 
 
 def case_mesh(mesh, dev):

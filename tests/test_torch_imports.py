@@ -57,7 +57,8 @@ def _imports(path):
 def test_sources_import_no_jax(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "mcl_3dl_tpu", "__graft_entry__"), (
+        assert top not in ("jax", "jaxlib", "mcl_3dl_tpu", "__graft_entry__",
+                           "bench", "tools"), (
             f"{path.relative_to(ROOT)} imports {name}")
 
 
@@ -112,7 +113,8 @@ def test_engine_defaults_to_cuda():
 _BLOCKED = r"""
 import importlib
 import sys
-for name in ("jax", "jaxlib", "mcl_3dl_tpu", "__graft_entry__"):
+for name in ("jax", "jaxlib", "mcl_3dl_tpu", "__graft_entry__", "bench",
+             "tools"):
     sys.modules[name] = None          # any import of them raises
 mod = importlib.import_module(sys.argv[1])
 print("IMPORTED:" + mod.__name__)
@@ -133,11 +135,15 @@ print("IMPORTED:" + mod.__name__)
     "mcl_3dl_tpu_torch.parallel", "mcl_3dl_tpu_torch.parallel.sharding",
     "mcl_3dl_tpu_torch.shard", "mcl_3dl_tpu_torch.tools.fleet",
     "mcl_3dl_tpu_torch.tools.sharded",
+    "mcl_3dl_tpu_torch.tools.bench", "mcl_3dl_tpu_torch.tools.exp_small",
+    "mcl_3dl_tpu_torch.tools.benchmark_raycast",
+    "mcl_3dl_tpu_torch.tools.bag_to_npz",
 ])
 def test_module_imports_with_jax_blocked(module):
     """The global-mode, correlative, replay and Tier-3 modules, the options
-    and services, and the fleet and split modules import with JAX and the
-    JAX package made unimportable."""
+    and services, the fleet and split modules, and the bench, small-count,
+    raycast and bag tools import with JAX and the JAX package made
+    unimportable."""
     out = subprocess.run([sys.executable, "-c", _BLOCKED, module], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -174,3 +180,26 @@ def test_every_option_constructs_and_steps_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "TIERS:2,2" in out.stdout.splitlines()
+
+
+def _public_names(path):
+    """The public top-level functions and classes of a module."""
+    tree = ast.parse(path.read_text(), str(path))
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef)) and not n.name.startswith("_")}
+
+
+JAX_PACKAGE = ROOT / "mcl_3dl_tpu"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(JAX_PACKAGE.rglob("*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_public_name_has_a_port_counterpart(path):
+    """Every public top-level function and class of a JAX package module
+    has a same-named counterpart in the port's module of the same path."""
+    port = PORT / path.relative_to(JAX_PACKAGE)
+    assert port.exists(), f"no port module for {path.relative_to(ROOT)}"
+    missing = sorted(_public_names(path) - _public_names(port))
+    assert not missing, f"{port.relative_to(ROOT)} lacks {missing}"

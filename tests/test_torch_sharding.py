@@ -8,8 +8,9 @@ the port only.  Each test joins its ranks within 60 s, so that a hang
 fails the test.
 
 Tolerances and why:
-* ``pf.expectation`` atol 1e-5 (JAX's ``test_sharding``): sums split over
-  ranks add in another order;
+* ``pf.expectation`` atol 1e-5 (JAX's ``test_sharding``), also over the
+  heaviest half (``pass_ratio``), and ``pf.entropy`` atol 1e-6: sums split
+  over ranks add in another order;
 * ``pf.resample``/``resize``: the weights are given, so the gathered CDF
   is the one-process CDF: positions atol 1e-5, weights equal;
 * the split step: tiers 0/0 on every rank; ``e_pos``/``e_rot`` atol 1e-5
@@ -49,7 +50,8 @@ def test_shard_state_and_pf_boundaries(tmp_path):
         assert m["mean_err"] <= 1e-5, m
         assert m["resample_err"] <= 1e-5 and m["resample_prob_equal"], m
         assert m["resize_err"] <= 1e-5 and m["resize_prob_equal"], m
-        assert m["best_equal"], m
+        assert m["best_equal"] and m["biased_equal"], m
+        assert m["ratio_mean_err"] <= 1e-5 and m["entropy_err"] <= 1e-6, m
 
 
 @pytest.mark.parametrize("world", [2, 4])
