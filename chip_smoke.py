@@ -21,19 +21,28 @@ time):
    and tight in attitude is measured once, through the likelihood
    model's tier-1 box kernel K3; then ``initial_pose`` with the tracking
    spread and 10 more scans, which must end at tiers 0/0 (kernels K1 and
-   K2) with a published pose within 0.05 m / 0.05 rad of the truth.  Kernel launch
-   counts are zeroed right before the drive and read right after it;
+   K2) with a published pose within 0.05 m / 0.05 rad of the truth.  Each
+   measurement goes through ``MCL3DL._step`` (``step_graph.py``: CUDA
+   graphs of the step, replayed at tiers 0/0; the other steps run the rest
+   eagerly), and the route of each is printed.  Kernel launch counts (K1,
+   K2, K3 and M1, the fixed march) are zeroed right before the drive and
+   read right after it;
 4. each kernel against its plain PyTorch version on the card at the main
    path's shapes (inputs from the drive's last state): bit-equal on every
    slot whose value the caller keeps, then timed beside its bound, with
    a call split into device time (a CUDA graph's replay) and host time
    (1000 back-to-back calls); K3 also at the edges of its forms (N 128
    with K 1, N 384 with K 96, and the 1M case through a lidx view that
-   is not 16-byte aligned), bit-equal;
+   is not 16-byte aligned), bit-equal; M1 on the 65,536 x 3 overflow rays
+   of the drive's last state;
 5. where a steady step's time goes: each layer timed on the final state
-   (and the likelihood's tier 1 around K3: box queries, box tables, K3),
-   ``push_cloud`` over 20 more scans, and one step under
-   ``torch.profiler`` for the device-busy share (run last);
+   (and the likelihood's tier 1 around K3: box queries, box tables, K3);
+   the graphed step (``_step``) and the eager ``_measurement_step``, 20
+   steady steps each in turns (median, max), the device time of each
+   graph's replay and the busy share it gives; 10 chained graphed steps
+   held bit-equal to 10 eager ones on the same draws; ``push_cloud`` over
+   20 more scans; and a graphed and an eager step under ``torch.profiler``
+   for the device-busy share (run last);
 6. the lookup microbenchmarks (kernels G1-G10, ``mcl_3dl_tpu_torch/tools``)
    at the JAX scripts' sizes: launch counts zeroed, the three tools run
    (``exp_gather`` with ``--risky``; each times its kernels and PyTorch
@@ -82,7 +91,9 @@ time):
    read after), robot ``i``'s odometry moved by ``i * APART_M`` in x so
    that the robots publish distinct poses: a warm-up fleet step on given
    per-robot draws, then ``FLEET_STEPS`` timed steps on the robots' own
-   generators.  At least 99% of robots at tiers 0/0, every published pose
+   generators, every robot through the engine's CUDA graphs (one pair
+   serves them all; the routes are printed, and each graph's replay is
+   timed alone for the card's busy share).  At least 99% of robots at tiers 0/0, every published pose
    finite, neighbours' published poses apart, two robots
    (chosen by seed) bit-equal to the single-robot step on the warm-up's
    state and draws; K1 and K2 at one robot's fleet shapes against their
@@ -101,9 +112,10 @@ time):
    same shapes, timed once).
 13. the port's tools, each in a child process (its lines echoed, a
    non-zero exit fails the smoke): the bench (``tools/bench.py
-   --processes 3``, every row: steady, ``push_cloud``, fallback,
-   trilinear, global mode; its steady steps must run K1 and K2 at tiers
-   0/0, and its launch counts go on phase 4's K1-K3 rows as
+   --processes 3``, every row: steady (graphed), steady_eager,
+   ``push_cloud``, fallback, trilinear, global mode; its steady steps must
+   run K1 and K2 at tiers 0/0 from both graphs, and its launch counts go
+   on phase 4's K1-K3 rows as
    ``bench_launches``), the small-count sweep (``tools/exp_small.py``, 64
    / 512 / 16,384 particles, rows also in ``chiprun_out/exp_small.jsonl``)
    and the raycast harness (``tools/benchmark_raycast.py``).  It runs
@@ -138,6 +150,7 @@ import time
 import numpy as np
 
 STEADY_STEPS = 20              # extra scans timed at steady state
+CHAIN_STEPS = 10               # graphed steps held bit-equal to eager ones
 SEEDS_MIN = 100_000            # global localization: a ~100k-seed search
 FLEET_ROBOTS = 1024            # BASELINE config 5: 1024 robots x 10,240
 BATCHED_ROBOTS = 128
@@ -153,31 +166,135 @@ def sh(cmd):
     return out.stdout.strip()
 
 
+def routes_since(eng, before):
+    """The routes ``_step`` took since the snapshot ``before`` (a copy of
+    ``eng.step_routes``), the zeros left out."""
+    return {k: v - before[k] for k, v in eng.step_routes.items()
+            if v != before[k]}
+
+
 def profile_step(eng, scan, origin, card):
-    """One steady measurement under ``torch.profiler``: the device-busy
-    share of its wall time; the op table goes to
+    """One steady measurement under ``torch.profiler``, graphed (``_step``,
+    after three unprofiled ones, so that it replays both graphs) and then
+    eager (``_measurement_step``): the device-busy share of each one's
+    wall time, returned by kind; the graphed step's op table goes to
     chiprun_out/profile_step.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     labels = np.zeros(len(scan), np.int64)
     orig = origin[None].astype(np.float32)
-    eng.measure_direct(scan, orig, labels, 100.0)
+    t = 100.0
+    for _ in range(3):
+        eng.measure_direct(scan, orig, labels, t)
+        t += 0.1
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.measure_direct(scan, orig, labels, 100.1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    shares, tables = {}, {}
+    for kind in ("graphed", "eager"):
+        if kind == "eager":
+            eng._step = eng._measurement_step
+        before = dict(eng.step_routes)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.measure_direct(scan, orig, labels, t)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        t += 0.1
+        events = prof.key_averages()
+        dev_us = sum(e.self_device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if kind == "eager":
+            del eng._step
+        tables[kind] = events.table(sort_by="self_device_time_total",
+                                    row_limit=40)
+        shares[kind] = dev_us / 1e3 / (wall * 1e3)
+        print(f"phase 5 profile ({kind}, route {routes_since(eng, before)}):"
+              f" step wall {wall * 1e3:.2f} ms, device busy "
+              f"{dev_us / 1e3:.2f} ms ({100.0 * shares[kind]:.1f}%), "
+              f"{len(events)} distinct ops {card}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/profile_step.txt", "w") as f:
-        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
-    print(f"phase 5 profile: step wall {wall * 1e3:.2f} ms, device busy "
-          f"{dev_us / 1e3:.2f} ms ({100.0 * dev_us / 1e3 / (wall * 1e3):.1f}%),"
-          f" {len(events)} distinct ops {card}", flush=True)
+        f.write(tables["graphed"])
+    return shares
+
+
+def graph_phase(eng, scan, card, steps=STEADY_STEPS, chain=CHAIN_STEPS):
+    """Phase 5's graphed step on the engine's state, from fresh graphs:
+    ``steps`` chained steps through ``_step`` and as many through the eager
+    ``_measurement_step``, in turns, each timed on the host clock between
+    two syncs; each graph's replay timed alone with CUDA events (its device
+    time: the host enqueues a replay in one call); then ``chain`` chained
+    graphed steps held bit-equal, every output, to as many eager steps on
+    the same draws.  Returns ``(graphed ms list, eager ms list, A ms, B ms)``."""
+    import torch
+    from mcl_3dl_tpu_torch.tools import sharded, time_ms
+
+    args = list(sharded.step_args(eng, scan))
+    eng.drop_step_graphs()
+
+    def advance(step, state, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, *a)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        a[10], a[11], a[8], a[9] = out[1], out[2], out[3], out[4]
+        return out[0], dt
+
+    g_args, e_args = list(args), list(args)
+    g_state = e_state = eng.pstate
+    for _ in range(3):                 # warm-up, then the captures
+        g_state, _ = advance(eng._step, g_state, g_args)
+    before = dict(eng.step_routes)
+    g_ms, e_ms = [], []
+    for _ in range(steps):
+        g_state, dt = advance(eng._step, g_state, g_args)
+        g_ms.append(dt)
+        e_state, dt = advance(eng._measurement_step, e_state, e_args)
+        e_ms.append(dt)
+    routes = routes_since(eng, before)
+    entry = next(iter(eng._graphs.values()))
+    a_ms = time_ms(entry.graph_a.replay, 5)
+    b_ms = time_ms(entry.graph_b.replay, 5)
+    med = statistics.median
+    print(f"phase 5 graphed step (_step): median {med(g_ms):.2f} ms, max "
+          f"{max(g_ms):.2f} ms over {steps} steps, routes {routes}; eager "
+          f"(_measurement_step), in turns: median {med(e_ms):.2f} ms, max "
+          f"{max(e_ms):.2f} ms; device time of a replay: graph A "
+          f"{a_ms:.3f} ms + graph B {b_ms:.3f} ms = "
+          f"{100.0 * (a_ms + b_ms) / med(g_ms):.1f}% of the graphed step "
+          f"{card}", flush=True)
+    # every step replays graph A; B where both flags fit (tiers 0/0)
+    assert set(routes) <= {"graph", "graph_front"}, routes
+    assert routes.get("graph", 0) >= steps // 2, routes
+
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(5)
+    keeps = eng.keeps(args[2], args[4])
+    draws = [eng.draw_step(*keeps, gen=gen) for _ in range(chain)]
+    g_args, g_state, graphed = list(args), eng.pstate, []
+    before = dict(eng.step_routes)
+    for d in draws:
+        out = eng._step(g_state, *g_args, d)
+        graphed.append(out)
+        g_state = out[0]
+        g_args[10], g_args[11], g_args[8], g_args[9] = out[1:5]
+    routes = routes_since(eng, before)
+    e_args, e_state, tiers = list(args), eng.pstate, []
+    for i, d in enumerate(draws):
+        out = eng._measurement_step(e_state, *e_args, d)
+        same = sharded.outputs_equal(graphed[i], out)
+        assert same, f"graphed step {i} differs from the eager step"
+        tiers.append((out[5]["tier_like"], out[5]["tier_beam"]))
+        e_state = out[0]
+        e_args[10], e_args[11], e_args[8], e_args[9] = out[1:5]
+        graphed[i] = None
+    print(f"phase 5 {chain} chained graphed steps at "
+          f"{eng.pstate.capacity} particles bit-equal to {chain} eager steps "
+          f"on the same draws: True (routes {routes}, tiers {tiers}) {card}",
+          flush=True)
+    return g_ms, e_ms, a_ms, b_ms
 
 
 def lone_calls(where):
@@ -207,7 +324,7 @@ def report(results, card, kname, src, replaces, kernel, plain, bytes_, ops,
     for a, b in zip(got, want):
         a, b = a[sel], b[sel]
         assert torch.equal(a, b), f"{kname}: kernel != plain"
-        err = max(err, float((a - b).abs().max()))
+        err = max(err, float((a.double() - b.double()).abs().max()))
     ms = time_ms(kernel, 25)
     dev_ms, host_ms = split(kernel)
     plain_ms = time_ms(plain, 3)
@@ -359,6 +476,9 @@ K1_SRC = ("mcl_3dl_tpu_torch/csrc/grouped.cu",
           "mcl_3dl_tpu/ops/grouped.py:778 (_like_kernel)")
 K2_SRC = ("mcl_3dl_tpu_torch/csrc/grouped.cu",
           "mcl_3dl_tpu/ops/grouped.py:918 (_beam_kernel)")
+M1_SRC = ("mcl_3dl_tpu_torch/csrc/beam_march.cu",
+          "none: XLA lax.fori_loop, mcl_3dl_tpu/models/beam.py:269-331 "
+          "(raycast_fixed, called at :488)")
 
 
 def model_layers(eng, inp, k1_ms, k2_ms):
@@ -451,12 +571,13 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
     and the kernels' JSON rows."""
     import torch
     from mcl_3dl_tpu_torch import worlds
+    from mcl_3dl_tpu_torch.models.beam import march_fixed
     from mcl_3dl_tpu_torch.ops import build
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
     from mcl_3dl_tpu_torch.parallel import (fleet_filter_step,
                                             fleet_filter_step_grouped)
-    from mcl_3dl_tpu_torch.tools import fleet, sharded
+    from mcl_3dl_tpu_torch.tools import fleet, sharded, time_ms
     from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
 
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -471,11 +592,12 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
     scan = worlds.scan(np.random.default_rng(0), fleet.CLOUD_POINTS)
 
     kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
-               "local": olg.local_score}
+               "local": olg.local_score, "march": march_fixed}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
+    routes0 = dict(eng.step_routes)
     t0 = time.perf_counter()
     step = fleet_filter_step_grouped(eng)
     args = fleet.apart(fleet.inputs(eng, robots, scan), APART_M)
@@ -495,6 +617,8 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     launches = {k: fn.launches for k, fn in kernels.items()}
+    routes = {k: v - routes0[k] for k, v in eng.step_routes.items()
+              if v != routes0[k]}
     peak = torch.cuda.max_memory_allocated()
     aux = out[5]
     t0_like = float((aux["tier_like"] == 0).float().mean())
@@ -511,6 +635,7 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
           f"robot-updates/s, {robots * cap * 99 / (ms / 1e3):.4e} "
           f"particle-point evals/s, tiers 0/0 on {t0_both:.4f} of robots "
           f"(like {t0_like:.4f}, beam {t0_beam:.4f}), launches {launches}, "
+          f"routes of the robots' steps {routes}, "
           f"robots apart by {APART_M} m in odometry, published {gap:.4f} m "
           f"apart at least, peak memory {peak / 2**30:.2f} GiB, set-up {setup_s:.1f} s "
           f"{card}", flush=True)
@@ -518,6 +643,15 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
     assert finite, "non-finite published pose"
     assert gap > APART_M / 2, gap
     assert launches["like"] > 0 and launches["beam"] > 0, launches
+    assert routes.get("graph", 0) >= 0.99 * robots * steps, routes
+    # the device time of a robot's graphs, each replay timed alone
+    entry = next(e for e in eng._graphs.values() if e.graph_b is not None)
+    a_ms = time_ms(entry.graph_a.replay, 5)
+    b_ms = time_ms(entry.graph_b.replay, 5)
+    print(f"phase 11 a robot's graphs: A {a_ms:.3f} ms + B {b_ms:.3f} ms of "
+          f"device time against {ms / robots:.3f} ms a robot in the timed "
+          f"fleet step: the card busy {100.0 * (a_ms + b_ms) * robots / ms:.1f}%"
+          f" {card}", flush=True)
 
     # two robots against the single-robot step on the warm-up's inputs
     thr = (eng.params.std_warn_thresh_xy, eng.params.std_warn_thresh_z,
@@ -535,8 +669,8 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
                   fleet.robot_filter(warm[2], i), warm[3][i], warm[4][i],
                   {k: (v[i] if isinstance(one[5][k], torch.Tensor)
                        else v[i].item()) for k, v in warm[5].items()}))
-        print(f"phase 11 robot {i}: bit-equal to the single-robot step "
-              f"{same} {card}", flush=True)
+        print(f"phase 11 robot {i}: bit-equal to the single-robot eager "
+              f"step {same} {card}", flush=True)
         assert same, f"robot {i} differs from the single-robot step"
 
     # K1 and K2 at one robot's fleet shapes (its state after the warm-up)
@@ -548,9 +682,7 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
     kernel_rows(lambda *a, **k: report(results, card, *a, **k), inp,
                 launches, "_fleet", 11)
     layers = model_layers(eng, inp, results[-2]["ms"], results[-1]["ms"])
-    layers["rest of a robot's step (sampling, PF tail, host)"] = (
-        ms / robots - layers["measure_models total"])
-    print("phase 11 split of a robot's step (ms): " + "; ".join(
+    print("phase 11 split of a robot's eager step (ms): " + "; ".join(
         f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
     del inp, warm, out, nxt, args, draws
     eng.pstate = start
@@ -615,7 +747,8 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
         wall = time.perf_counter() - t1
     dev_us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"phase 11 profile: {PROFILED_ROBOTS} robots' grouped steps, wall "
+    print(f"phase 11 profile: {PROFILED_ROBOTS} robots' grouped steps "
+          f"(graphed), wall "
           f"{wall * 1e3:.1f} ms, device busy {dev_us / 1e3:.2f} ms "
           f"({100.0 * dev_us / 1e3 / (wall * 1e3):.1f}%) {card}", flush=True)
     print("FLEET_ROWS " + json.dumps(results), flush=True)
@@ -725,6 +858,9 @@ def tools_phase(card):
     assert (ex["tier_like"], ex["tier_beam"]) == (0, 0), ex["steady_tiers"]
     for launches in ex["launches_steady"]:
         assert launches["like"] > 0 and launches["beam"] > 0, launches
+    for routes in ex["routes_steady"]:
+        assert set(routes) == {"graph"} or not any(
+            n for k, n in routes.items() if k != "graph"), routes
     assert len(stdout["exp_small"]) == 3
     assert sum("casts" in line for line in stdout["benchmark_raycast"]) == 4
     return bench
@@ -1053,10 +1189,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     os.makedirs("chiprun_out", exist_ok=True)
     sys.stdout = Tee(sys.stdout, "chiprun_out/chip_smoke.log")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mcl_3dl_tpu_torch import worlds
+    from mcl_3dl_tpu_torch.models.beam import march_fixed
     from mcl_3dl_tpu_torch.ops import build
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
@@ -1095,21 +1233,28 @@ def main() -> int:
     origin = np.array([0.0, 0.0, worlds.SENSOR_Z])
     ident = np.array([0.0, 0.0, 0.0, 1.0])
     kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
-               "local": olg.local_score}
+               "local": olg.local_score, "march": march_fixed}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
-    steps = []
-    t = gp.drive(eng, rng, on_step=lambda dt, res: steps.append(
-        (dt, eng.last_aux["tier_like"], eng.last_aux["tier_beam"], res)))
+    steps, seen = [], [dict(eng.step_routes)]
+
+    def on_step(dt, res):
+        steps.append((dt, eng.last_aux["tier_like"],
+                      eng.last_aux["tier_beam"], res,
+                      ",".join(routes_since(eng, seen[0]))))
+        seen[0] = dict(eng.step_routes)
+
+    t = gp.drive(eng, rng, on_step=on_step)
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    print("phase 3 per step (tier_like, tier_beam, raw z): "
-          + " ".join(f"{a},{b},{r.raw_pos[2]:.4f}" for _, a, b, r in steps),
-          flush=True)
+    print("phase 3 per step (tier_like, tier_beam, raw z, route of _step): "
+          + " ".join(f"{a},{b},{r.raw_pos[2]:.4f},{rt}"
+                     for _, a, b, r, rt in steps), flush=True)
     last = steps[-1][3]
     assert (steps[-1][1], steps[-1][2]) == (0, 0), "not at tiers 0/0"
+    assert steps[-1][4] == "graph", "the last step did not replay both graphs"
     assert all(n > 0 for n in launches.values()), launches
     for key in ("e_pos", "e_rot", "pub_pos", "pub_rot", "cov", "entropy",
                 "match_ratio_min", "match_ratio_max"):
@@ -1120,7 +1265,7 @@ def main() -> int:
     rot_err = 2.0 * float(np.arccos(min(w, 1.0)))       # rotation angle
     assert pos_err < 0.05 and rot_err < 0.05, (last.pos, last.rot)
     raw_err = float(np.linalg.norm(last.raw_pos))
-    steady = [dt for dt, a, b, _ in steps if (a, b) == (0, 0)][1:]
+    steady = [dt for dt, a, b, _, _ in steps if (a, b) == (0, 0)][1:]
     step_s = statistics.median(steady)
     print(f"phase 3 main path: {gp.NUM_PARTICLES} particles, {len(steps)} "
           f"measurements, launches {launches}, published pose err {pos_err:.4f} m"
@@ -1154,19 +1299,29 @@ def main() -> int:
     local_edges(card, (k3, kw3, k3_bound, k3_kept))
     del k3
 
+    # M1 at the 65,536 x 3 overflow rays of this state's layout
+    m1_args, m1_bound, m1_kept = gp.march_case(eng, inp)
+    report_here("march_fixed", *M1_SRC,
+                lambda: march_fixed(*m1_args),
+                lambda: march_fixed.plain(*m1_args), *m1_bound,
+                launches["march"], m1_kept)
+    del m1_args
+
     # ---- phase 5: per-layer split of a steady step (CUDA events, 5 runs)
     kms = {r["name"]: r["ms"] for r in results}
     layers = model_layers(eng, inp, kms["like_score"], kms["beam_pen"])
-    layers["rest of push_cloud (sampling, PF tail, host)"] = (
-        step_s * 1e3 - layers["measure_models total"])
-    print("phase 5 split (ms): " + "; ".join(
-        f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
     tier1 = tier1_split(eng, inp, kms["local_score"])
+    del inp
+    _, e_ms, _, _ = graph_phase(eng, scan, card)
+    layers["rest of the eager step (sampling, PF tail)"] = (
+        statistics.median(e_ms) - layers["measure_models total"])
+    print("phase 5 split of the eager step (ms): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
     print("phase 5 tier-1 split at 1M x 96 (ms): " + "; ".join(
         f"{k} {v:.3f}" for k, v in tier1.items()) + f" {card}", flush=True)
 
     # steady-state push_cloud time over STEADY_STEPS more scans
-    times, tiers = [], set()
+    times, tiers, before = [], set(), dict(eng.step_routes)
     for _ in range(STEADY_STEPS + 1):
         eng.odometry(np.zeros(3), ident, t)
         cloud = worlds.scan(rng, gp.CLOUD_POINTS)
@@ -1178,7 +1333,8 @@ def main() -> int:
         tiers.add((eng.last_aux["tier_like"], eng.last_aux["tier_beam"]))
         t += 0.1
     times = sorted(times[1:])
-    print(f"phase 5 steady push_cloud over {len(times)} scans, tiers {tiers}:"
+    print(f"phase 5 steady push_cloud over {len(times)} scans, routes "
+          f"{routes_since(eng, before)}, tiers {tiers}:"
           f" median {statistics.median(times) * 1e3:.2f} ms, max "
           f"{times[-1] * 1e3:.2f} ms, {gp.NUM_PARTICLES * (96 + 3) / statistics.median(times):.4e}"
           f" particle-point evals/s {card}", flush=True)
@@ -1212,7 +1368,8 @@ def main() -> int:
 
     # phase 5's profiled step comes last: after a torch.profiler session
     # the host path of every later launch reads slower, phase 6's included
-    profile_step(eng, scan, origin, card)
+    shares = profile_step(eng, scan, origin, card)
+    assert shares["graphed"] > 0.0, shares
 
     # ---- phase 13: the bench, the small-count sweep, the raycast harness
     bench = tools_phase(card)
@@ -1222,6 +1379,8 @@ def main() -> int:
         if key:
             r["bench_launches"] = bench["extra"]["launches_steady"][0][key]
 
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s {card}", flush=True)
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -73,6 +73,7 @@ def load_checkpoint(engine, path) -> None:
             f"checkpoint of a {meta['device']} engine: its random stream "
             f"does not load into a {engine.device.type} engine")
     dev = engine.device
+    engine.drop_step_graphs()
 
     def get(prefix, n):
         return [data[f"{prefix}.{i}"] for i in range(n)]

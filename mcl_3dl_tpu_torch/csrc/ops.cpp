@@ -1,5 +1,6 @@
 // The kernels' binding to PyTorch: one operator a C entry point of
-// grouped.cu, local_gather.cu and gather_bench.cu, registered with torch's
+// grouped.cu, local_gather.cu, beam_march.cu and gather_bench.cu,
+// registered with torch's
 // dispatcher for CUDA tensors.
 //
 // Host-only C++: built with the host compiler against torch's headers and
@@ -43,6 +44,10 @@ int mcl_beam_pen(const float*, const int*, const int*, const int*,
                  float, float, float, cudaStream_t);
 int mcl_local_score(const float*, const int*, float*, float*, int, int, int,
                     float, float, float, cudaStream_t);
+int mcl_march_fixed(const float*, const float*, const float*, const uint8_t*,
+                    const float*, bool*, float*, float*, int, int, int, int,
+                    int, float, float, float, float, float, float, float,
+                    float, float, cudaStream_t);
 int mcl_row_gather(const void*, const int*, void*, int, int, int, int,
                    cudaStream_t);
 int mcl_flat_gather(const float*, const int*, float*, int, int, int, int,
@@ -247,6 +252,44 @@ std::tuple<Tensor, Tensor> local_score(const Tensor& tables,
   return {out.select(0, 0), out.select(0, 1)};
 }
 
+// ---- M1 (beam_march.cu)
+
+// begin and direction [R, 3] f32, l_b [R] f32, field [nx, ny, nz] u8,
+// origin [3] f32 (read on the device, never copied to the host), all on
+// one device; the floats come in as the f32 values the wrapper computed
+std::tuple<Tensor, Tensor, Tensor> march_fixed(
+    const Tensor& begin, const Tensor& direction, const Tensor& l_b,
+    const Tensor& field, const Tensor& origin, int64_t num_steps, double wx,
+    double wy, double wz, double cell, double scale, double trunc,
+    double grid, double radius, double d_entry_thr) {
+  const int64_t r = dim0(begin, 0);
+  const c10::Device dev = begin.device();
+  const Shape s_ray{r, 3}, s_lb{r}, s_org{3};
+  TORCH_CHECK_VALUE(field.dim() == 3, "field must be [nx, ny, nz], got ",
+                    shape_str(field.sizes()));
+  check(begin, "begin", F32, &s_ray, &dev);
+  check(direction, "direction", F32, &s_ray, &dev);
+  check(l_b, "l_b", F32, &s_lb, &dev);
+  check(field, "field", U8, nullptr, &dev);
+  check(origin, "origin", F32, &s_org, &dev);
+  c10::cuda::CUDAGuard guard(dev);
+  Tensor found = at::empty({r}, begin.options().dtype(c10::ScalarType::Bool));
+  Tensor cpos = at::empty({r, 3}, begin.options());
+  Tensor sin_ang = at::empty({r}, begin.options());
+  launched(mcl_march_fixed(ptr<const float>(begin), ptr<const float>(direction),
+                           ptr<const float>(l_b), ptr<const uint8_t>(field),
+                           ptr<const float>(origin), ptr<bool>(found),
+                           ptr<float>(cpos), ptr<float>(sin_ang),
+                           i32(r, "rays"), i32(field.size(0), "nx"),
+                           i32(field.size(1), "ny"), i32(field.size(2), "nz"),
+                           i32(num_steps, "num_steps"), (float)wx, (float)wy,
+                           (float)wz, (float)cell, (float)scale, (float)trunc,
+                           (float)grid, (float)radius, (float)d_entry_thr,
+                           stream_of(begin)),
+           "mcl_march_fixed");
+  return {found, cpos, sin_ang};
+}
+
 // ---- G1-G10 (gather_bench.cu)
 
 // (a) G1, G2, G4: tab [rows, width] of `dtype`, idx [rows, 128] i32
@@ -349,6 +392,10 @@ MCL_LIBRARY(MCL_OPS_NS, m) {
         "float sin_total_ref, float d_entry_thr, float tol) -> Tensor");
   m.def("local_score(Tensor tables, Tensor lidx, float mdm, float mdf, "
         "float mw) -> (Tensor, Tensor)");
+  m.def("march_fixed(Tensor begin, Tensor direction, Tensor l_b, "
+        "Tensor field, Tensor origin, int num_steps, float wx, float wy, "
+        "float wz, float cell, float scale, float trunc, float grid, "
+        "float radius, float d_entry_thr) -> (Tensor, Tensor, Tensor)");
   m.def("row_gather(Tensor tab, Tensor idx, int off, int width, "
         "ScalarType dtype) -> Tensor");
   m.def("flat_gather(Tensor tab, Tensor idx, int off, int shared) -> Tensor");
@@ -361,6 +408,7 @@ MCL_LIBRARY_IMPL(MCL_OPS_NS, CUDA, m) {
   m.impl("like_score", &like_score);
   m.impl("beam_pen", &beam_pen);
   m.impl("local_score", &local_score);
+  m.impl("march_fixed", &march_fixed);
   m.impl("row_gather", &row_gather);
   m.impl("flat_gather", &flat_gather);
   m.impl("col_gather", &col_gather);

@@ -39,6 +39,16 @@ budget is 0, and the particle count decays 0.75x a step.  Capacity grows
 and shrinks on the host in power-of-two buckets.  Checkpoints are
 ``checkpoint.py``.
 
+The step is split at the host read of the ``fits`` flags:
+``_step_front`` (clip, sampling, the grouping's statistics, boxes and
+flags) and ``_step_back`` (the layout, both models, the filter's tail).
+``_step`` runs ``_measurement_step`` from CUDA graphs where it can
+(``step_graph.py``, the counterpart of the JAX engine's
+``jax.jit(self._measurement_step)``): the front replayed every step, the
+back when both flags fit (tiers 0/0), else eagerly; on the CPU ``_step``
+is ``_measurement_step``.  Every service that replaces the particle state
+or the map drops the graphs (``drop_step_graphs``).
+
 The fleet and the splits over ``torch.distributed`` are ``parallel/``;
 the step gains two switches for them.  ``spmd_safe`` (the batched fleet,
 ``torch.func.vmap`` over the step) reads nothing on the host: the
@@ -61,6 +71,7 @@ import torch
 
 from mcl_3dl_tpu_torch import pf
 from mcl_3dl_tpu_torch import state as st
+from mcl_3dl_tpu_torch import step_graph
 from mcl_3dl_tpu_torch.cloud_accum import (CloudAccumulation,
                                            CloudAccumulationPassThrough)
 from mcl_3dl_tpu_torch.config import Params
@@ -96,6 +107,49 @@ from mcl_3dl_tpu_torch.status import (ConvergenceStatus, Diagnostics,
 # (einsum/matmul in the models and the per-bin moments): off.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+class GroupFront(NamedTuple):
+    """The pose-grouped sort up to the step's one host read: ``rmat``,
+    the bins' statistics, each eligible model's window origins (``vp``,
+    the beam's virtual points) and ``flags`` [1-2] bool (the likelihood's
+    ``fits`` where ``share_like``, then the beam's where ``grouped_beam``),
+    ``None`` where no model is eligible; ``cap`` the overflow slots."""
+
+    rmat: torch.Tensor
+    stats: Optional[og.GroupStats] = None
+    lo_like: Optional[torch.Tensor] = None
+    lo_beam: Optional[torch.Tensor] = None
+    vp: Optional[BeamVirtualPoints] = None
+    flags: Optional[torch.Tensor] = None
+    share_like: bool = False
+    grouped_beam: bool = False
+    cap: int = 0
+
+    def fits(self) -> list:
+        """The host read of ``flags`` ([] without them)."""
+        return [] if self.flags is None else self.flags.tolist()
+
+
+class StepFront(NamedTuple):
+    """``_step_front``'s outputs: the active mask, the sampled points, the
+    all-filtered-out flag, the draws (a shard's slice), whether the beam
+    model runs, and the grouping (``None`` for ``spmd_safe``)."""
+
+    mask: torch.Tensor
+    like_pts: torch.Tensor
+    like_valid: torch.Tensor
+    beam_pts: torch.Tensor
+    beam_labels: torch.Tensor
+    beam_valid: torch.Tensor
+    points_not_found: torch.Tensor
+    draws: "StepDraws"
+    use_beam: bool
+    group: Optional[GroupFront]
+
+    def fits(self) -> list:
+        """The host read of the grouping's flags ([] without them)."""
+        return [] if self.group is None else self.group.fits()
 
 
 class StepDraws(NamedTuple):
@@ -264,6 +318,19 @@ class MCL3DL:
             [p.expansion_var_x, p.expansion_var_y, p.expansion_var_z,
              p.expansion_var_roll, p.expansion_var_pitch, p.expansion_var_yaw],
             **f)
+        self._odom_noise_scale = torch.tensor(
+            [p.odom_err_lin_lin, p.odom_err_lin_ang, p.odom_err_ang_lin,
+             p.odom_err_ang_ang], **f)
+        # ``_step``'s CUDA graphs by key (``step_graph.step_key``), and how
+        # many steps took each route (``step_graph.ROUTES``)
+        self._graphs: dict = {}
+        self.step_routes = dict.fromkeys(step_graph.ROUTES, 0)
+
+    def drop_step_graphs(self) -> None:
+        """Forget ``_step``'s graphs (the next step at a key warms it up
+        again), as the JAX engine re-creates its jitted step: every service
+        that replaces the particle state or the map calls this."""
+        self._graphs.clear()
 
     # ------------------------------------------------------------ randomness
 
@@ -326,6 +393,7 @@ class MCL3DL:
 
     def load_map(self, points: np.ndarray, labels: Optional[np.ndarray] = None):
         """cbMapcloud / loadMapCloud (src/mcl_3dl.cpp:127-140, 1150-1170)."""
+        self.drop_step_graphs()
         self.map = MapData.build(points, self.params, labels, device=self.device)
         self.has_map = True
         self._accum_clear()
@@ -340,6 +408,7 @@ class MCL3DL:
         is kept."""
         if self.map is None:
             return None
+        self.drop_step_graphs()
         p = self.params
         pts = np.asarray(points, np.float64).reshape(-1, 3)
         if labels is None:
@@ -360,6 +429,7 @@ class MCL3DL:
         if abs(float(np.sum(rot * rot)) - 1.0) > 0.1:
             raise ValueError("initialpose orientation must be a unit quaternion")
         rpy = mqn.to_rpy(rot)
+        self.drop_step_graphs()
         cap = self.pstate.capacity
         self.pstate = st.init_multivariate(
             self._normals(cap, 6), cap, self.params.num_particles,
@@ -552,7 +622,7 @@ class MCL3DL:
         # bucketed along the reference's ramp and the beam dropped
         global_mode = self._n_active_host > p.num_particles
         (self.pstate, self.f_pos, self.f_ang, self.state_prev_pos,
-         self.state_prev_rot, aux) = self._measurement_step(
+         self.state_prev_rot, aux) = self._step(
             self.pstate, self.map.df, self.map.df_beam, *cloud,
             put(op), put(orot),
             self.state_prev_pos, self.state_prev_rot, self.f_pos, self.f_ang,
@@ -724,7 +794,18 @@ class MCL3DL:
         only if one of them fits.  ``use_beam`` overrides
         ``params.use_beam_model`` (global mode drops the beam).  Trilinear
         sampling makes the likelihood ineligible, the DDA raycast the
-        beam (as in the JAX engine)."""
+        beam (as in the JAX engine).  ``group_front`` and ``group_layout``
+        are its two halves, before and after the host read."""
+        front = self.group_front(pos, rot, mask, df, df_beam, like_pts,
+                                 like_valid, beam_pts, beam_labels,
+                                 beam_valid, origins, use_beam)
+        return self.group_layout(front, front.fits())
+
+    def group_front(self, pos, rot, mask, df, df_beam, like_pts, like_valid,
+                    beam_pts, beam_labels, beam_valid, origins,
+                    use_beam=None) -> GroupFront:
+        """``group`` up to its host read: the statistics, the boxes and the
+        ``fits`` flags as one device tensor (``GroupFront``)."""
         p = self.params
         use_beam = p.use_beam_model if use_beam is None else use_beam
         n_cap = pos.shape[0]
@@ -735,12 +816,13 @@ class MCL3DL:
         share_like = (p.likelihood.interp == "nearest"
                       and n_cap % og.TILE == 0)
         if not (share_like or use_grouped_beam):
-            return rmat, None, None
+            return GroupFront(rmat)
         cap = og.default_overflow_cap(n_cap)
         stats = og.group_stats(pos, rmat, rot, df.weights, float(df.cell),
                                df.origin, mask)
         under_cap = stats.n_over <= cap
         flags = []
+        lo_l = lo_b = vp = None
         if share_like:
             lo_l, fits_kg_l = og.group_boxes(stats, like_pts, df.shape)
             flags.append(torch.all(fits_kg_l | ~like_valid[:, None]) & under_cap)
@@ -749,16 +831,26 @@ class MCL3DL:
                                    p.map_grid_min, p.beam.hit_range, steps_g)
             lo_b, fits_kg_b = og.group_boxes(stats, vp.vpf, df_beam.shape)
             flags.append(torch.all(fits_kg_b | ~vp.chainf[:, None]) & under_cap)
-        fits = torch.stack(flags).tolist()           # the one host read
-        layout = og.build_layout(stats, cap) if any(fits) else None
-        return (rmat,
-                (stats, layout, lo_l, fits[0]) if share_like else None,
-                (stats, layout, lo_b, fits[-1], vp) if use_grouped_beam else None)
+        return GroupFront(rmat, stats, lo_l, lo_b, vp, torch.stack(flags),
+                          share_like, use_grouped_beam, cap)
+
+    @staticmethod
+    def group_layout(front: GroupFront, fits):
+        """``group``'s result from its front and the host's ``fits``
+        (``front.flags`` read back): the layout built if one fits."""
+        if front.flags is None:
+            return front.rmat, None, None
+        layout = og.build_layout(front.stats, front.cap) if any(fits) else None
+        return (front.rmat,
+                ((front.stats, layout, front.lo_like, fits[0])
+                 if front.share_like else None),
+                ((front.stats, layout, front.lo_beam, fits[-1], front.vp)
+                 if front.grouped_beam else None))
 
     def _measure_models(self, pos, rot, mask, df, df_beam, like_pts,
                         like_valid, beam_pts, beam_labels, beam_valid,
                         origins, use_beam=None, *, occ=None,
-                        global_mode=False, spmd_safe=False):
+                        global_mode=False, spmd_safe=False, grouped=None):
         """Per-particle measurement likelihoods (measure_func,
         src/mcl_3dl.cpp:402-425): ``(lik_l, qual_l, lik_b, tier_like,
         tier_beam)``; ``use_beam`` overrides ``params.use_beam_model``.
@@ -766,11 +858,14 @@ class MCL3DL:
         a ``global_mode`` step samples nearest, its layout built inside
         the likelihood model; the DDA raycast marches ``occ`` (default the
         map's).  ``spmd_safe`` reads nothing on the host: no grouping, the
-        plain gather, a fixed-trip march (tiers 2/2)."""
+        plain gather, a fixed-trip march (tiers 2/2).  ``grouped``: the
+        result of ``group`` on these arguments, when the caller has it."""
         p = self.params
         lp, bp = p.likelihood, p.beam
         use_beam = p.use_beam_model if use_beam is None else use_beam
-        if spmd_safe:
+        if grouped is not None:
+            rmat, grouped_like, grouped_beam = grouped
+        elif spmd_safe:
             rmat = mq.rotation_matrix(mq.normalize(rot))
             grouped_like = grouped_beam = None
         else:
@@ -821,7 +916,7 @@ class MCL3DL:
     def _measurement_step(self, state: ParticleState, df, df_beam, cloud,
                           cloud_label, cloud_valid, origins, odom_pos,
                           odom_rot, prev_pos, prev_rot, f_pos, f_ang,
-                          is_global_fix: bool, std_warn_thresh,
+                          is_global_fix, std_warn_thresh,
                           draws: Optional[StepDraws] = None, *,
                           global_mode: bool = False, global_slots=None,
                           occ=None, normals=None, spmd_safe: bool = False,
@@ -845,8 +940,35 @@ class MCL3DL:
         ``spmd_safe`` (the batched fleet) makes no host read.  With a
         ``shard`` (``shard.Shard``) ``state`` is this rank's slice; the
         draws are the whole capacity's, made alike on every rank (default
-        the engine generator's), and each rank keeps its slice."""
-        p = self.params
+        the engine generator's), and each rank keeps its slice.
+
+        It is ``_step_front``, the host read of the grouping's ``fits``
+        flags, and ``_step_back``."""
+        front = self._step_front(
+            state, df, df_beam, cloud, cloud_label, cloud_valid, origins,
+            draws, global_mode=global_mode, global_slots=global_slots,
+            normals=normals, spmd_safe=spmd_safe, shard=shard)
+        return self._step_back(
+            front, front.fits(), state, df, df_beam, origins, odom_pos,
+            odom_rot, prev_pos, prev_rot, f_pos, f_ang, is_global_fix,
+            std_warn_thresh, global_mode=global_mode, occ=occ,
+            spmd_safe=spmd_safe, shard=shard)
+
+    def _step(self, *args, **kw):
+        """``_measurement_step``'s signature and outputs, from CUDA graphs
+        where it can (``step_graph.run``; on the CPU, and for global-mode,
+        batched, split and normal-sampler steps, ``_measurement_step``
+        itself)."""
+        return step_graph.run(self, *args, **kw)
+
+    def _step_front(self, state: ParticleState, df, df_beam, cloud,
+                    cloud_label, cloud_valid, origins,
+                    draws: Optional[StepDraws] = None, *,
+                    global_mode: bool = False, global_slots=None,
+                    normals=None, spmd_safe: bool = False,
+                    shard=None) -> StepFront:
+        """The step up to its one host read: clip, sampling and
+        (``spmd_safe`` aside) ``group_front``."""
         mask = state.active_mask(shard_offset(shard))
         if draws is None and shard is not None:
             slots = self.slots(global_mode, global_slots)
@@ -863,12 +985,35 @@ class MCL3DL:
                 noise_normals=shard.local(draws.noise_normals),
                 expand_normals=shard.local(draws.expand_normals))
         use_beam = self.slots(global_mode, global_slots)[2]
+        group = None if spmd_safe else self.group_front(
+            state.pos, state.rot, mask, df, df_beam, like_pts, like_valid,
+            beam_pts, beam_labels, beam_valid, origins, use_beam)
+        return StepFront(mask, like_pts, like_valid, beam_pts, beam_labels,
+                         beam_valid, points_not_found, draws, use_beam, group)
+
+    def _step_back(self, front: StepFront, fits, state: ParticleState, df,
+                   df_beam, origins, odom_pos, odom_rot, prev_pos, prev_rot,
+                   f_pos, f_ang, is_global_fix, std_warn_thresh, *,
+                   global_mode: bool = False, occ=None,
+                   spmd_safe: bool = False, shard=None):
+        """The step after its host read, given ``front`` and the ``fits``
+        flags read from it: the layout, both models, the odometry prior,
+        the weight update, bias, expectation, jump detection, TF smoothing,
+        covariance, resampling, noise redraw, expansion resetting and the
+        global-mode decay."""
+        p = self.params
+        mask, draws = front.mask, front.draws
+        like_pts = front.like_pts
+        points_not_found = front.points_not_found
 
         # --- per-particle likelihoods (measure_func, src/mcl_3dl.cpp:402-425)
         lik_l, qual_l, lik_b, tier_like, tier_beam = self._measure_models(
-            state.pos, state.rot, mask, df, df_beam, like_pts, like_valid,
-            beam_pts, beam_labels, beam_valid, origins, use_beam, occ=occ,
-            global_mode=global_mode, spmd_safe=spmd_safe)
+            state.pos, state.rot, mask, df, df_beam, like_pts,
+            front.like_valid, front.beam_pts, front.beam_labels,
+            front.beam_valid, origins, front.use_beam, occ=occ,
+            global_mode=global_mode, spmd_safe=spmd_safe,
+            grouped=(None if front.group is None
+                     else self.group_layout(front.group, fits)))
         odom_error = normal_likelihood(
             torch.linalg.vector_norm(state.odom_err_lin, dim=-1),
             p.odom_err_integ_lin_sigma)
@@ -920,7 +1065,8 @@ class MCL3DL:
         cov = pf.covariance(state2, shard)
         thr = [float(x) for x in std_warn_thresh]
         fix = (is_global_fix if isinstance(is_global_fix, torch.Tensor)
-               else torch.tensor(bool(is_global_fix)))
+               else torch.full((), bool(is_global_fix), dtype=torch.bool,
+                               device=state.device))
         large_std = ~fix & (
             (torch.sqrt(cov[0, 0] + cov[1, 1]) > thr[0])
             | (torch.sqrt(cov[2, 2]) > thr[1])
@@ -933,10 +1079,8 @@ class MCL3DL:
         # --- resample + noise redraw (src/mcl_3dl.cpp:809-825)
         state3 = pf.resample(state2, draws.u0, draws.resample_normals,
                              self._resample_sigma.to(state.device), shard)
-        scale = torch.tensor([p.odom_err_lin_lin, p.odom_err_lin_ang,
-                              p.odom_err_ang_lin, p.odom_err_ang_ang],
-                             dtype=torch.float32, device=state.device)
-        state3 = state3._replace(noise=draws.noise_normals * scale)
+        state3 = state3._replace(
+            noise=draws.noise_normals * self._odom_noise_scale.to(state.device))
 
         # --- expansion resetting (src/mcl_3dl.cpp:853-864)
         expanded = match_ratio_max < p.match_ratio_thresh
@@ -981,6 +1125,7 @@ class MCL3DL:
 
     def resize_particles(self, n: int) -> None:
         """resize_mcl_particle service (src/mcl_3dl.cpp:1019-1025)."""
+        self.drop_step_graphs()
         self._grow_capacity(n)
         self.pstate = pf.resize(self.pstate, n)
         self._n_active_host = n
@@ -988,6 +1133,7 @@ class MCL3DL:
 
     def expansion_reset(self) -> None:
         """expansion_resetting service (src/mcl_3dl.cpp:1026-1038)."""
+        self.drop_step_graphs()
         self.pstate = pf.add_noise(
             self.pstate, self._normals(self.pstate.capacity, 6),
             self._expansion_sigma)
@@ -1022,6 +1168,7 @@ class MCL3DL:
         with the IMU attitude; returns the new particle count."""
         if not self.has_map:
             raise RuntimeError("No map received.")
+        self.drop_step_graphs()
         points = self._standable_points()
         if points.shape[0] == 0:
             return self._n_active_host
@@ -1053,6 +1200,7 @@ class MCL3DL:
         pins the seeded height.  Returns the new particle count."""
         if not self.has_map:
             raise RuntimeError("No map received.")
+        self.drop_step_graphs()
         if scan_points_base is None:
             scan_points_base = self._last_scan_base
         if scan_points_base is None or len(scan_points_base) == 0:
@@ -1139,6 +1287,7 @@ class MCL3DL:
         """Landmark pose measurement (cbLandmark, src/mcl_3dl.cpp:899-940);
         the Gaussian's normalization and inverse are computed on the host
         once, as the reference's NormalLikelihoodNd constructor does."""
+        self.drop_step_graphs()
         f = dict(dtype=torch.float32, device=self.device)
         u0 = torch.rand((), generator=self._gen, device=self.device)
         normals6 = self._normals(self.pstate.capacity, 6)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from mcl_3dl_tpu_torch.map.native import build_distance_field_native
-from mcl_3dl_tpu_torch.math import f32
+from mcl_3dl_tpu_torch.math import device_constant, f32
 
 ZW = 128        # z lanes of one local-table row (ops/grouped.py)
 
@@ -62,8 +62,8 @@ class DistanceField:
 
     def _cells(self, q):
         """Query points ``q`` [..., 3] in cell units of the grid."""
-        w = torch.tensor(self.weights, dtype=torch.float32, device=q.device)
-        cell = torch.tensor(f32(self.cell), device=q.device)
+        w = device_constant(self.weights, torch.float32, q.device)
+        cell = device_constant(f32(self.cell), torch.float32, q.device)
         return (q * w - self.origin) / cell
 
     def sample_nearest(self, q):
@@ -113,7 +113,7 @@ def gather_codes(field, iq):
     """``(code, oob)``: u8 codes of the field at integer cells ``iq``
     [..., 3] (clamped into the map) and the out-of-map mask."""
     nx, ny, nz = field.shape
-    dims = torch.tensor([nx, ny, nz], dtype=torch.int32, device=iq.device)
+    dims = device_constant((nx, ny, nz), torch.int32, iq.device)
     oob = torch.any((iq < 0) | (iq >= dims), dim=-1)
     ic = torch.minimum(torch.clamp(iq, min=0), dims - 1).to(torch.int64)
     flat = (ic[..., 0] * ny + ic[..., 1]) * nz + ic[..., 2]

@@ -1,10 +1,12 @@
-"""Math helpers: quaternions (torch and numpy), filters, Gaussians, and a
-run-to-run reproducible scan."""
+"""Math helpers: quaternions (torch and numpy), filters, Gaussians, a
+run-to-run reproducible scan, and kept device constants."""
 
 import numpy as np
 import torch
 
 SCAN_ROW = 1024
+
+_CONSTANTS = {}
 
 
 def f32(x) -> float:
@@ -43,3 +45,16 @@ def row_scan(x, row: int = SCAN_ROW):
     before = row_scan(part[:, -1], row)
     before = torch.cat([before.new_zeros(1), before[:-1]])
     return (part + before[:, None]).reshape(-1)[:n]
+
+
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once and
+    kept (callers never write to it).  A step captured into a CUDA graph
+    may not copy from the host, so the constants it reads are made by the
+    eager step that warms it up, and a capture finds them here."""
+    key = (tuple(values) if isinstance(values, (tuple, list)) else values,
+           dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t

@@ -7,10 +7,14 @@ import math
 import numpy as np
 import torch
 
+from mcl_3dl_tpu_torch.math import device_constant
+
 
 def normal_likelihood(x, sigma):
     """1-D Gaussian pdf N(x; 0, sigma^2) (nd.h:45-53), evaluated in f32."""
-    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+    sigma = (torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+             if isinstance(sigma, torch.Tensor)
+             else device_constant(float(sigma), torch.float32, x.device))
     a = 1.0 / torch.sqrt(2.0 * math.pi * sigma * sigma)
     return a * torch.exp(-x * x / (sigma * sigma * 2.0))
 

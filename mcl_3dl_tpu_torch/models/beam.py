@@ -11,7 +11,9 @@ at beam_likelihood_min (:146-152).
 
 Tier 0 (``beam_measure_grouped``) runs kernel K2 over the pose-grouped
 layout shared with the likelihood model and rescores envelope outliers
-with the exact fixed march; tier 2 (``beam_measure``) is the sphere
+with the exact fixed march (``march_fixed``: kernel M1,
+``csrc/beam_march.cu``, on the card; ``raycast_fixed`` is its plain
+version); tier 2 (``beam_measure``) is the sphere
 trace ``raycast_df`` or, with ``use_dda``, the half-cell march
 ``raycast_occ``; each checks its loop exit on the host every probe.
 """
@@ -24,6 +26,7 @@ from mcl_3dl_tpu_torch.map.distance_field import DistanceField
 from mcl_3dl_tpu_torch.map.occupancy import OccupancyGrid
 from mcl_3dl_tpu_torch.math import f32
 from mcl_3dl_tpu_torch.math import quat as mq
+from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
 
 
@@ -211,6 +214,38 @@ def raycast_fixed(df: DistanceField, begin, end, map_grid_min: float,
     return found, cpos, sin_ang
 
 
+def march_fixed(df: DistanceField, begin, end, map_grid_min: float,
+                map_grid_max: float, hit_tolerance: float, num_steps: int):
+    """Kernel M1 (``csrc/beam_march.cu``): ``raycast_fixed``'s ``(found,
+    collision_pos [..., 3], sin_angle)`` for CUDA tensors, bit for bit;
+    ``raycast_fixed`` itself, its plain version, for CPU tensors.  The
+    ray set-up (``_ray`` and the probe limit ``l_b``) stays torch, so its
+    rounding is the plain version's; the kernel marches each ray to its
+    first hit or its limit.  It replaces no Pallas kernel: on the TPU the
+    march is XLA's ``lax.fori_loop`` (mcl_3dl_tpu/models/beam.py:269-331)."""
+    if not begin.is_cuda:
+        return raycast_fixed(df, begin, end, map_grid_min, map_grid_max,
+                             hit_tolerance, num_steps)
+    shape = begin.shape[:-1]
+    length, direction = _ray(begin, end)
+    l_b = torch.floor(_cdiv(length + f32(hit_tolerance), map_grid_min))
+    trunc = float(df.trunc)
+    wx, wy, wz = (f32(w) for w in df.weights)
+    found, cpos, sin_ang = build.op("march_fixed")(
+        begin.reshape(-1, 3).contiguous(),
+        direction.reshape(-1, 3).contiguous(), l_b.reshape(-1).contiguous(),
+        df.field, df.origin, num_steps, wx, wy, wz, f32(df.cell),
+        f32(trunc / 255.0), f32(trunc), f32(map_grid_min),
+        f32(2.0 ** 0.5 * map_grid_max / 2.0), f32(trunc * 0.99))
+    march_fixed.launches += 1
+    return (found.reshape(shape), cpos.reshape(shape + (3,)),
+            sin_ang.reshape(shape))
+
+
+march_fixed.launches = 0
+march_fixed.plain = raycast_fixed
+
+
 class BeamVirtualPoints:
     """Particle-independent probe schedule of the grouped fixed march:
     probe ``i`` of beam ``b`` is the virtual point ``org_b + dir_b *
@@ -253,7 +288,7 @@ def _overflow_beam_pen(df_beam, pos, rot, over_idx, points, origin_idx,
     sensor_org = origins[origin_idx]                           # [B, 3]
     begins = torch.einsum("bj,cij->cbi", sensor_org, rmatc) + posc[:, None, :]
     ends = torch.einsum("bj,cij->cbi", points, rmatc) + posc[:, None, :]
-    found, cpos, sin_ang = raycast_fixed(
+    found, cpos, sin_ang = march_fixed(
         df_beam, begins, ends, map_grid_min, map_grid_max, hit_range,
         num_steps)
     dist_sq = torch.sum((ends - cpos) ** 2, dim=-1)

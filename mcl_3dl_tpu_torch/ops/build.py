@@ -40,7 +40,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("grouped.cu", "local_gather.cu", "gather_bench.cu")
+SOURCES = ("grouped.cu", "local_gather.cu", "beam_march.cu",
+           "gather_bench.cu")
 BINDING = "ops.cpp"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")

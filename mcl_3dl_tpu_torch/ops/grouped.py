@@ -34,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from mcl_3dl_tpu_torch.math import f32
+from mcl_3dl_tpu_torch.math import device_constant, f32
 from mcl_3dl_tpu_torch.ops import build
 
 G_YAW = int(os.environ.get("MCL_G_YAW", "24"))
@@ -124,7 +124,7 @@ def group_stats(pos, rot_mat, rot, weights3, cell, origin3, active) -> GroupStat
     """
     n = pos.shape[0]
     dev = pos.device
-    w = torch.tensor(weights3, dtype=torch.float32, device=dev)
+    w = device_constant(tuple(float(x) for x in weights3), torch.float32, dev)
     inv_cell = f32(1.0 / cell)
     af = active.to(torch.float32)
 

@@ -11,8 +11,10 @@ replicated; every rank holds its own slice of the particle state.
   JAX runs a ``lax.cond`` per shard under ``shard_map``); only the
   filter's boundaries cross ranks (``shard.Shard``).
 * ``fleet_filter_step_grouped``: robots split over the robots axis; each
-  rank runs its robots in turn through the single-robot step, with the
-  grouped kernels K1/K2 and each robot's own host tier read.
+  rank runs its robots in turn through the single-robot step
+  (``MCL3DL._step``: one pair of CUDA graphs serves every robot, the
+  counterpart of JAX's ``lax.scan`` over robots), with the grouped kernels
+  K1/K2 and each robot's own host tier read.
 * ``fleet_filter_step``: the batched ``spmd_safe`` fleet,
   ``torch.func.vmap`` of the single-robot step over a leading robots
   axis: no host read inside, so the likelihood runs its plain gather
@@ -260,9 +262,12 @@ def _fleet_draws(draw, r0, cloud, cloud_valid, capacity):
 def fleet_filter_step_grouped(engine, mesh: Optional[Mesh] = None):
     """The fleet step with the fast per-robot tiers: robots split over the
     mesh's robots axis, each rank running its robots in turn through the
-    full single-robot ``_measurement_step`` (grouped kernels K1/K2, K3
+    full single-robot step, ``MCL3DL._step`` (grouped kernels K1/K2, K3
     where a robot is tight in attitude, each robot's own host read of its
-    ``fits`` flags).  Robot ``i``'s outputs are the single-robot step's on
+    ``fits`` flags).  On the card each robot's state, draws and inputs are
+    copied into the engine's graphs, which replay and are copied out:
+    every robot has the same shapes, so one pair of graphs serves them
+    all.  Robot ``i``'s outputs are the single-robot step's on
     its state and draws, bit for bit.  The working set is one robot's.
     Without a mesh this process runs every robot it is given.
     Raises on a particles axis other than 1 (build the mesh with
@@ -287,7 +292,7 @@ def fleet_filter_step_grouped(engine, mesh: Optional[Mesh] = None):
         for i in range(n_robots):
             d = (_robot(draws, i) if draws is not None
                  else draw(r0 + i, cloud[i], cloud_valid[i], cap))
-            outs.append(engine._measurement_step(
+            outs.append(engine._step(
                 _robot(state_b, i), df, df_beam, cloud[i], cloud_label[i],
                 cloud_valid[i], origins[i], odom_pos[i], odom_rot[i],
                 prev_pos[i], prev_rot[i], _robot(f_pos_b, i),

@@ -184,7 +184,10 @@ def _argmax_particle(state: ParticleState, weights, shard) -> dict:
     cols = (state.pos, state.rot, state.odom_err_lin, state.odom_err_ang,
             state.noise)
     if shard is None:
-        return {k: c[idx] for k, c in zip(names, cols)}
+        # index_select, not c[idx]: a 0-dim index tensor is read on the
+        # host, which a step captured into a CUDA graph may not do
+        sel = idx.reshape(1)
+        return {k: c.index_select(0, sel)[0] for k, c in zip(names, cols)}
     # every slice's best as (weight, row); the first maximum in rank order
     # is the lowest global index
     cand = shard.gather(torch.cat([prob[idx].reshape(1)]

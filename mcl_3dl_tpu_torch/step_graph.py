@@ -1,0 +1,278 @@
+"""The steady measurement step replayed from CUDA graphs: the port's
+counterpart of the JAX engine's ``self._step = jax.jit(
+self._measurement_step)`` (mcl_3dl_tpu/engine.py:168).
+
+``run`` has ``MCL3DL._measurement_step``'s signature and outputs.  On a
+CUDA device, for a step it can graph (``graphable``: not global mode, not
+batched or split, the uniform sampler, nearest sampling at a capacity of
+whole 1024-slot tiles, and a beam model that is off or grouped), it keeps
+one ``StepGraph`` a key (``step_key``: what JAX's jit re-traces on —
+capacity, cloud bucket, number of origins, both models' slot counts,
+whether the beam runs, the thresholds and the map) in the engine's
+``_graphs``.  A step is split at its one host read, the ``fits`` flags
+(the ``lax.cond`` of the JAX step):
+
+* graph A, ``MCL3DL._step_front``: clip, sampling, the grouping's
+  statistics, boxes and flags;
+* graph B, ``MCL3DL._step_back`` with both flags true: the layout, the
+  tables, K1 and K2, both overflow rescores (M1 among them), the weight
+  update and the filter's tail.
+
+The first step at a key runs eagerly (the warm-up: kernels built, device
+constants made, ``math.device_constant``); later steps copy their inputs
+into the graphs' static buffers, replay A, read the flags, and replay B
+where both fit, else run ``_step_back`` eagerly on A's outputs (startup,
+kidnap, tiers 1 and 2).  B is captured at the first step at the key whose
+flags both fit after one such eager remainder; both graphs share one
+memory pool, and a step's outputs are copied out of the graphs' buffers
+before the next replay.  The
+draws are made eagerly by the engine's generator before A replays (the
+same calls the eager step makes), so a graphed and an eager step on the
+same draws see the same bits.  A capture error raises; nothing falls back
+to the eager step on the card.
+
+The kernels' wrappers do not run on a replay, so each capture records how
+many times each counted kernel (``KERNELS``) launched inside it and every
+replay adds that to the wrappers' counts; a capture itself counts none.
+Every step adds one to the engine's ``step_routes`` under its route
+(``ROUTES``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from mcl_3dl_tpu_torch.models.beam import march_fixed
+from mcl_3dl_tpu_torch.ops import grouped as og
+from mcl_3dl_tpu_torch.ops import local_gather as olg
+
+# the launch-counted kernel wrappers: K1, K2, K3, M1
+KERNELS = (og.grouped_like_score, og.grouped_beam_pen, olg.local_score,
+           march_fixed)
+# "graph": A and B replayed; "graph_front": A replayed, the rest eager;
+# "warm_up": the first step at a key, eager; "eager": not graphable
+ROUTES = ("graph", "graph_front", "warm_up", "eager")
+
+
+class StepInputs(NamedTuple):
+    """Everything a graphed step reads besides the map: the graphs' static
+    buffers, or one step's values to copy into them."""
+
+    state: tuple
+    cloud: torch.Tensor
+    cloud_label: torch.Tensor
+    cloud_valid: torch.Tensor
+    origins: torch.Tensor
+    odom_pos: torch.Tensor
+    odom_rot: torch.Tensor
+    prev_pos: torch.Tensor
+    prev_rot: torch.Tensor
+    f_pos: tuple
+    f_ang: tuple
+    fix: torch.Tensor
+    draws: tuple
+
+
+def enabled(device) -> bool:
+    """Graphs run on a CUDA device only."""
+    return torch.device(device).type == "cuda"
+
+
+def capture(fn, pool):
+    """``(graph, outputs)``: ``fn()`` captured into a CUDA graph whose
+    allocations come from ``pool``.  A capture error raises."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    return graph, out
+
+
+def new_pool(device):
+    return torch.cuda.graph_pool_handle() if enabled(device) else None
+
+
+def graphable(engine, state, *, global_mode=False, normals=None,
+              spmd_safe=False, shard=None) -> bool:
+    """Whether ``run`` graphs this step: not global mode (JAX keeps a
+    ``_step_global`` of its own), not ``spmd_safe`` or split, the uniform
+    sampler (the normal-weighted one's ``eigh`` waits for the card),
+    nearest sampling at a capacity of whole tiles (the likelihood's
+    grouped tier), and a beam model that is off or grouped (the DDA and
+    over-long marches check their exit on the host)."""
+    p = engine.params
+    if (global_mode or spmd_safe or shard is not None or normals is not None
+            or p.use_random_sampler_with_normal):
+        return False
+    if p.likelihood.interp != "nearest" or state.capacity % og.TILE:
+        return False
+    from mcl_3dl_tpu_torch.engine import beam_num_steps
+
+    return not p.use_beam_model or (not p.beam.use_raycast_using_dda
+                                    and beam_num_steps(p) + 1 <= 64)
+
+
+def step_key(state, cloud, origins, draws, use_beam, std_warn_thresh, df,
+             df_beam) -> tuple:
+    """The graphs' key: capacity, cloud bucket, number of origins, both
+    models' slots, whether the beam runs, the thresholds (baked into B)
+    and the maps (their tensors are read in place)."""
+    return (state.capacity, cloud.shape[0], origins.shape[0],
+            draws.like_idx.shape[0], draws.beam_idx.shape[0], bool(use_beam),
+            tuple(float(x) for x in std_warn_thresh), id(df), id(df_beam))
+
+
+def leaves(x):
+    """The tensors of ``x`` (tensors, tuples, lists, dicts and objects'
+    attributes, in order), ``None`` and Python values skipped."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from leaves(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from leaves(v)
+    elif hasattr(x, "__dict__") and not isinstance(x, type):
+        for v in vars(x).values():
+            yield from leaves(v)
+
+
+def tree_map(fn, x):
+    """``x`` with ``fn`` applied to each tensor of its tuples (named ones
+    kept) and dicts; other values as they are."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple):
+        vals = [tree_map(fn, v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    if isinstance(x, dict):
+        return {k: tree_map(fn, v) for k, v in x.items()}
+    return x
+
+
+def copy_into(dst, src) -> None:
+    """Copy every tensor of ``src`` into the same place in ``dst``."""
+    for d, s in zip(leaves(dst), leaves(src), strict=True):
+        d.copy_(s)
+
+
+def launch_counts():
+    return [k.launches for k in KERNELS]
+
+
+class StepGraph:
+    """One key's graphs: the static inputs, graph A and its outputs (a
+    ``StepFront``), graph B and its outputs, the launches each graph
+    holds, and whether B's eager remainder has run at this key (its
+    warm-up)."""
+
+    def __init__(self, df, df_beam, device):
+        self.maps = (df, df_beam)      # kept: the graphs read their tensors
+        self.pool = new_pool(device)
+        self.inputs: Optional[StepInputs] = None
+        self.graph_a = self.front = self.launches_a = None
+        self.graph_b = self.back = self.launches_b = None
+        self.warm_b = False
+
+    def load(self, inputs: StepInputs) -> StepInputs:
+        """Copy this step's inputs into the static buffers (made on first
+        use); returns the buffers."""
+        if self.inputs is None:
+            self.inputs = tree_map(lambda t: torch.empty_like(
+                t, memory_format=torch.contiguous_format), inputs)
+        copy_into(self.inputs, inputs)
+        return self.inputs
+
+    def _capture(self, fn):
+        before = launch_counts()
+        graph, out = capture(fn, self.pool)
+        held = [a - b for a, b in zip(launch_counts(), before)]
+        for k, n in zip(KERNELS, before):
+            k.launches = n             # a capture launches nothing
+        return graph, out, held
+
+    @staticmethod
+    def _replay(graph, held):
+        graph.replay()
+        for k, n in zip(KERNELS, held):
+            k.launches += n
+
+    def replay_front(self, fn):
+        if self.graph_a is None:
+            self.graph_a, self.front, self.launches_a = self._capture(fn)
+        self._replay(self.graph_a, self.launches_a)
+        return self.front
+
+    def replay_back(self, fn):
+        """B's outputs, copied out of the graph's buffers."""
+        if self.graph_b is None:
+            self.graph_b, self.back, self.launches_b = self._capture(fn)
+        self._replay(self.graph_b, self.launches_b)
+        return tree_map(torch.clone, self.back)
+
+
+def _device_bool(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor) and x.device == torch.device(device):
+        return x
+    return torch.full((), bool(x), dtype=torch.bool, device=device)
+
+
+def run(engine, state, df, df_beam, cloud, cloud_label, cloud_valid,
+        origins, odom_pos, odom_rot, prev_pos, prev_rot, f_pos, f_ang,
+        is_global_fix, std_warn_thresh, draws=None, *, global_mode=False,
+        global_slots=None, occ=None, normals=None, spmd_safe=False,
+        shard=None):
+    """``engine._measurement_step`` on these arguments, from the engine's
+    graphs where ``enabled`` and ``graphable`` (module docstring)."""
+    routes = engine.step_routes
+    if not (enabled(state.device) and graphable(
+            engine, state, global_mode=global_mode, normals=normals,
+            spmd_safe=spmd_safe, shard=shard)):
+        routes["eager"] += 1
+        return engine._measurement_step(
+            state, df, df_beam, cloud, cloud_label, cloud_valid, origins,
+            odom_pos, odom_rot, prev_pos, prev_rot, f_pos, f_ang,
+            is_global_fix, std_warn_thresh, draws, global_mode=global_mode,
+            global_slots=global_slots, occ=occ, normals=normals,
+            spmd_safe=spmd_safe, shard=shard)
+    if draws is None:
+        draws = engine.draw_step(*engine.keeps(cloud, cloud_valid))
+    use_beam = engine.slots()[2]
+    key = step_key(state, cloud, origins, draws, use_beam, std_warn_thresh,
+                   df, df_beam)
+    given = StepInputs(state, cloud, cloud_label, cloud_valid, origins,
+                       odom_pos, odom_rot, prev_pos, prev_rot, f_pos, f_ang,
+                       _device_bool(is_global_fix, state.device), draws)
+
+    def front(x: StepInputs):
+        return engine._step_front(x.state, df, df_beam, x.cloud,
+                                  x.cloud_label, x.cloud_valid, x.origins,
+                                  x.draws)
+
+    def back(fr, fits, x: StepInputs):
+        return engine._step_back(fr, fits, x.state, df, df_beam, x.origins,
+                                 x.odom_pos, x.odom_rot, x.prev_pos,
+                                 x.prev_rot, x.f_pos, x.f_ang, x.fix,
+                                 std_warn_thresh)
+
+    entry = engine._graphs.get(key)
+    if entry is None:
+        entry = engine._graphs[key] = StepGraph(df, df_beam, state.device)
+        fr = front(given)
+        fits = fr.fits()
+        entry.warm_b = all(fits)
+        routes["warm_up"] += 1
+        return back(fr, fits, given)
+
+    static = entry.load(given)
+    fr = entry.replay_front(lambda: front(static))
+    fits = fr.fits()
+    if all(fits) and entry.warm_b:
+        routes["graph"] += 1
+        return entry.replay_back(lambda: back(fr, fits, static))
+    entry.warm_b = entry.warm_b or all(fits)
+    routes["graph_front"] += 1
+    # copied: some outputs (``aux["points_not_found"]``) are graph A's
+    return tree_map(torch.clone, back(fr, fits, given))

@@ -1,6 +1,7 @@
 """The port's bench: particle-point evaluations per second of the whole
 fused measurement step on the card (the counterpart of the repository
-root's ``bench.py``).
+root's ``bench.py``, which times ``jax.jit(eng._measurement_step)``: here
+``MCL3DL._step``, the step replayed from CUDA graphs).
 
     python -m mcl_3dl_tpu_torch.tools.bench [--quick] [--processes 3]
 
@@ -12,7 +13,10 @@ as ``tools.sharded.step_args`` builds them), at 1,048,576 particles
 (``--quick``: 16,384).  Its rows, as ``bench.py`` has them:
 
 * steady: the first step, 6 warm-up steps, then 20 timed steps
-  (``--quick``: 2 and 3), the state chained from step to step;
+  (``--quick``: 2 and 3), the state chained from step to step, through
+  ``_step`` (the headline);
+* steady_eager: the same steps through the eager ``_measurement_step``,
+  chained on from the steady row's last state (2 warm-up steps);
 * push_cloud: 20 scans through ``push_cloud`` on the same engine from the
   steady state (one more first, not counted): the latency users see;
 * fallback: ``initial_pose`` spread wide (1 m, 0.1 rad roll/pitch, 1 rad
@@ -26,7 +30,8 @@ Each step draws from the engine's generator inside the timed window and
 is timed on the host clock between two ``torch.cuda.synchronize()``
 calls; a row's time is the median of its steps.  Each row records the
 tiers its steps ran and the launches of kernels K1-K3 over its timed
-steps.  ``BENCH_NO_BEAM``, ``BENCH_LIKE_POINTS`` and
+steps; the steady row also the routes ``_step`` took
+(``step_graph.ROUTES``).  ``BENCH_NO_BEAM``, ``BENCH_LIKE_POINTS`` and
 ``BENCH_HEADLINE_ONLY`` keep ``bench.py``'s meaning (the last two rows and
 the fallback row are then skipped; ``--quick`` skips them too).
 
@@ -34,8 +39,9 @@ The rows run in ``--processes`` child processes, one after the other,
 each printing one JSON line; the headline step is the median of the
 children's steady medians, and ``extra`` holds each child's medians with
 their min and max, every steady step of every child, and the pooled
-steps' min, quartiles and max.  The steady timed steps must all run at tiers 0/0 (the
-grouped kernels), else the tool fails.  The last stdout line has
+steps' min, quartiles and max.  The steady timed steps must all run at
+tiers 0/0 (the grouped kernels) and, on the card, replay both graphs,
+else the tool fails.  The last stdout line has
 ``bench.py``'s keys: ``{"metric": "particle_likelihood_evals_per_sec_chip",
 "value", "unit": "evals/s", "vs_baseline", "extra"}``, the value
 ``N * (96 + 3) / step`` and the baseline the reference node's 64
@@ -119,19 +125,21 @@ def _launches():
     return {k: fn.launches for k, fn in KERNELS.items()}
 
 
-def steps(eng, state, args, n, chain=True, **kw):
+def steps(eng, state, args, n, chain=True, eager=False, **kw):
     """``n`` measurement steps from ``state`` (each on the last one's
-    output state with ``chain``, else each on ``state``), each timed on
-    the host clock between two synchronisations: ``(last output, ms a
-    step, sorted tiers, K1-K3 launches over the steps, their counts set
-    to 0 just before)``."""
+    output state with ``chain``, else each on ``state``) through
+    ``eng._step`` (with ``eager``, ``eng._measurement_step``), each timed
+    on the host clock between two synchronisations: ``(last output, ms a
+    step, sorted tiers, K1-K3 launches over the steps, their counts set to
+    0 just before)``."""
     dev = eng.device
+    step = eng._measurement_step if eager else eng._step
     times, tiers, out = [], set(), None
     _zero_launches()
     for _ in range(n):
         sync(dev)
         t0 = time.perf_counter()
-        out = eng._measurement_step(state, *args, **kw)
+        out = step(state, *args, **kw)
         sync(dev)
         times.append((time.perf_counter() - t0) * 1e3)
         tiers.add((out[5]["tier_like"], out[5]["tier_beam"]))
@@ -146,6 +154,7 @@ def _row(times, tiers, launches, **fields):
                 tiers=tiers, launches=launches, **fields)
 
 
+
 def _first(eng, state, args, **kw):
     """The first step on ``state``, outside any row: ``(output,
     seconds)``."""
@@ -155,11 +164,24 @@ def _first(eng, state, args, **kw):
 
 def steady_row(eng, args, warmup=6, iters=20):
     """The headline row: the first step, ``warmup`` chained steps, then
-    ``iters`` timed chained steps.  ``(last output, row)``."""
+    ``iters`` timed chained steps, through ``_step``.  ``(last output,
+    row)``; the row's ``routes`` are its timed steps'."""
     out, first_s = _first(eng, eng.pstate, args)
     out = steps(eng, out[0], args, warmup)[0]
+    before = dict(eng.step_routes)
     out, times, tiers, launches = steps(eng, out[0], args, iters)
-    return out, _row(times, tiers, launches, first_step_s=first_s)
+    routes = {k: v - before[k] for k, v in eng.step_routes.items()}
+    return out, _row(times, tiers, launches, first_step_s=first_s,
+                     routes=routes)
+
+
+def eager_row(eng, out, args, warmup=2, iters=20):
+    """The steady step through the eager ``_measurement_step``, chained on
+    from the step output ``out``: ``warmup`` steps, then ``iters`` timed.
+    ``(last output, row)``."""
+    out = steps(eng, out[0], args, warmup, eager=True)[0]
+    out, times, tiers, launches = steps(eng, out[0], args, iters, eager=True)
+    return out, _row(times, tiers, launches)
 
 
 def push_cloud_row(eng, out, scans=PUSH_SCANS, seed=1):
@@ -257,6 +279,9 @@ def child(quick=False, device=None):
                                    if dev.type == "cuda" else "cpu"))
     out, res["steady"] = steady_row(eng, args, *((2, 3) if quick else (6, 20)))
     _log("steady", res["steady"], where)
+    out, res["steady_eager"] = eager_row(eng, out, args,
+                                         *((1, 3) if quick else (2, 20)))
+    _log("steady_eager", res["steady_eager"], where)
     res["push_cloud"] = push_cloud_row(eng, out)
     _log("push_cloud", res["push_cloud"], where)
     if not quick and not env.get("BENCH_HEADLINE_ONLY"):
@@ -307,9 +332,11 @@ def summarize(results, where):
         step_ms_steps=[r["steady"]["step_ms_all"] for r in results],
         step_ms_pooled_quantiles=pooled,
         first_step_s_processes=[r["steady"]["first_step_s"] for r in results],
-        launches_steady=[r["steady"]["launches"] for r in results])
+        launches_steady=[r["steady"]["launches"] for r in results],
+        routes_steady=[r["steady"].get("routes", {}) for r in results])
     # bench.py's names for the other rows, each with its processes' medians
     for key, name, label in (
+            ("steady_eager", "steady_eager_step_ms", "steady_eager"),
             ("push_cloud", "push_cloud_ms", "push_cloud"),
             ("fallback", "fallback_step_ms", "fallback"),
             ("trilinear", "trilinear_step_ms", "trilinear"),
@@ -363,9 +390,15 @@ def main(argv=None):
         print(f"bench: the steady steps ran at tiers {ex['steady_tiers']}, "
               f"not {want}", file=sys.stderr)
         return 1
+    if any(n for r in ex["routes_steady"] for k, n in r.items()
+           if k != "graph"):
+        print(f"bench: not every steady step replayed both graphs: "
+              f"{ex['routes_steady']}", file=sys.stderr)
+        return 1
     print(f"bench: step {ex['step_ms']:.4f} ms (process medians "
           + " ".join(f"{m:.4f}" for m in ex["step_ms_processes"])
-          + f"), {1e3 / ex['step_ms']:.2f} filter updates/s at "
+          + f"; eager {ex.get('steady_eager_step_ms', float('nan')):.4f}), "
+          f"{1e3 / ex['step_ms']:.2f} filter updates/s at "
           f"{ex['num_particles']} particles, {line['value']:.4e} "
           f"point-evals/s, steady tiers {ex['steady_tiers']}, peak "
           f"{ex['max_memory_allocated_gib']:.2f} GiB [{where}]",

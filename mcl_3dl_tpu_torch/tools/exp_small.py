@@ -7,7 +7,9 @@ The reference node's operating point is 64-500 particles at the sensor
 rate (src/parameters.cpp:118: 64 by default, ~10 Hz demo).  For each
 particle count the engine and the step's arguments are the bench's
 (``tools.bench.build``: the flagship room world, the tracking spread, one
-4,096-point scan); the first step, 6 warm-up steps, then ``REPEATS``
+4,096-point scan); every step through ``MCL3DL._step`` (the counterpart of
+the JAX tool's jitted step: CUDA graphs where the step is graphable, as
+at 16,384); the first step, 6 warm-up steps, then ``REPEATS``
 chained blocks of ``iters`` steps, each block timed on the host clock
 between two ``torch.cuda.synchronize()`` calls.  The step time is the
 median block over ``iters``; the blocks' min and max give its spread.
@@ -53,7 +55,7 @@ def run_config(n_particles, device=None, iters=ITERS, repeats=REPEATS,
         sync(dev)
         t0 = time.perf_counter()
         for _ in range(iters):
-            out = eng._measurement_step(state, *args)
+            out = eng._step(state, *args)
             state = out[0]
             tiers.add((out[5]["tier_like"], out[5]["tier_beam"]))
         sync(dev)

@@ -193,6 +193,45 @@ def local_case(df, lp, pos, rmat, points, valid):
             torch.arange(n, device=lidx.device))
 
 
+def march_case(eng, inp):
+    """M1 (``march_fixed``) at the main path's overflow rescore: the rays
+    ``_overflow_beam_pen`` marches for the layout of ``inp``
+    (``kernel_inputs``), ``[cap, B]`` from each overflow slot's sensor
+    origin to its beam points.  ``(args, (bytes, ops), kept)``: each ray's
+    begin and end read and its three outputs written once, the field once;
+    ~22 f32 operations a probe over the probes these rays take (to the
+    first hit or the limit, from the plain version's outputs); every row
+    kept."""
+    from mcl_3dl_tpu_torch.engine import beam_num_steps
+    from mcl_3dl_tpu_torch.math import quat as mq
+    from mcl_3dl_tpu_torch.models.beam import _ray, raycast_fixed
+
+    p = eng.params
+    st = eng.pstate
+    idx = torch.clamp(inp.layout.over_idx, max=st.capacity - 1)
+    rmatc = mq.rotation_matrix(mq.normalize(st.rot[idx]))
+    posc = st.pos[idx]
+    org = inp.cloud[3][inp.beam_labels]
+    begins = torch.einsum("bj,cij->cbi", org, rmatc) + posc[:, None, :]
+    ends = torch.einsum("bj,cij->cbi", inp.beam_pts, rmatc) + posc[:, None, :]
+    df = eng.map.df_beam
+    steps = beam_num_steps(p)
+    args = (df, begins, ends, p.map_grid_min, p.map_grid_max,
+            p.beam.hit_range, steps)
+    found, cpos, _ = raycast_fixed(*args)
+    # the probes each ray takes: i = 1 .. to its hit, or while i < l_b
+    length, _ = _ray(begins, ends)
+    l_b = torch.floor((length + p.beam.hit_range) / p.map_grid_min)
+    last = torch.clamp(l_b - 1.0, 0.0, float(steps - 1))
+    i_hit = torch.round(torch.linalg.vector_norm(cpos - begins, dim=-1)
+                        / p.map_grid_min)
+    probes = float(torch.where(found, i_hit, last).sum())
+    rays = begins.shape[0] * begins.shape[1]
+    nbytes = rays * (12 + 12 + 1 + 12 + 4) + df.field.numel() + 12
+    return args, (nbytes, probes * 22), torch.arange(begins.shape[0],
+                                                    device=begins.device)
+
+
 def recovery_cloud(eng):
     """The fresh scan that phase 7 of ``chip_smoke.py`` scores a recovery
     step's state with, prepared by ``eng`` (``default_rng(2)``)."""
