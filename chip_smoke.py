@@ -25,8 +25,8 @@ time):
    measurement goes through ``MCL3DL._step`` (``step_graph.py``: CUDA
    graphs of the step, replayed at tiers 0/0; the other steps run the rest
    eagerly), and the route of each is printed.  Kernel launch counts (K1,
-   K2, K3 and M1, the fixed march) are zeroed right before the drive and
-   read right after it;
+   K2, K3 and M1, the fixed march; M2-M4 beside them) are zeroed right
+   before the drive and read right after it;
 4. each kernel against its plain PyTorch version on the card at the main
    path's shapes (inputs from the drive's last state): bit-equal on every
    slot whose value the caller keeps, then timed beside its bound, with
@@ -34,15 +34,24 @@ time):
    (1000 back-to-back calls); K3 also at the edges of its forms (N 128
    with K 1, N 384 with K 96, and the 1M case through a lidx view that
    is not 16-byte aligned), bit-equal; M1 on the 65,536 x 3 overflow rays
-   of the drive's last state;
+   of the drive's last state; the tier-2 kernels on the last state's
+   whole tier-2 working set (``tools/grouped_pairs.tier2_cases``): M4 at
+   1,048,576 x 96 queries, trilinear and nearest, beside
+   ``torch.nn.functional.grid_sample``, and M2 and M3 on the 1,048,576 x
+   3 beam rays (their launches are phases 8-10's, below);
 5. where a steady step's time goes: each layer timed on the final state
    (and the likelihood's tier 1 around K3: box queries, box tables, K3);
    the graphed step (``_step``) and the eager ``_measurement_step``, 20
    steady steps each in turns (median, max), the device time of each
    graph's replay and the busy share it gives; 10 chained graphed steps
-   held bit-equal to 10 eager ones on the same draws; ``push_cloud`` over
-   20 more scans; and a graphed and an eager step under ``torch.profiler``
-   for the device-busy share (run last);
+   held bit-equal to 10 eager ones on the same draws; the tier-2 graphs:
+   trilinear sampling at 1,048,576 particles and the 64-particle step
+   (no grouping), each on an engine of its own, 10 chained graphed steps
+   held bit-equal to 10 eager ones with their routes, tiers and
+   launches; the bench's fallback step (the wide spread) split into the
+   front, the box check and its tier, and the beam's M2 march;
+   ``push_cloud`` over 20 more scans; and a graphed and an eager step
+   under ``torch.profiler`` for the device-busy share (run last);
 6. the lookup microbenchmarks (kernels G1-G10, ``mcl_3dl_tpu_torch/tools``)
    at the JAX scripts' sizes: launch counts zeroed, the three tools run
    (``exp_gather`` with ``--risky``; each times its kernels and PyTorch
@@ -52,7 +61,7 @@ time):
    (``torch.equal``) to its plain version, and the plain version timed.
 7. global recovery (``tools/recovery.py``): ``MCL3DL(Params(num_particles=64))``
    on the flagship room world, ``global_localization()`` from 122,328
-   seeds decaying 0.75x a step to 64 particles (the plain gather scores
+   seeds decaying 0.75x a step to 64 particles (the box check scores
    the spread particles), then ``initial_pose`` + ``resize_particles``
    twice (clustered particles: K1 at 8 and 16 slots on capacities down to
    1024; a pose tight in attitude: K3 at capacity 512).  Every step must
@@ -62,7 +71,8 @@ time):
    each against its plain version as in phase 4;
 8. the Tier-3 gate through the port (``tools/run_tier3.py``: with-imu,
    no-imu and no-odom at 220 steps, the reference's gate math), launch
-   counts zeroed before and read after; a failed gate raises;
+   counts zeroed before and read after (the beam at tier 2: M2); a failed
+   gate raises;
 9. every option at full width (``tools/all_options.py``): 1,048,576
    particles on the flagship room world with trilinear sampling, the DDA
    raycast, the normal-weighted sampler, ``output_pcd`` and an
@@ -70,19 +80,20 @@ time):
    fifth and loaded into a fresh engine, which must stay equal bit for
    bit over the next five), ``landmark`` at the truth, ``update_map``
    with a small wall, 5 more scans, at tiers 2/2 with no K1-K3 launch
-   (counts zeroed before, read after).  The published pose must end
+   and M3 and M4 launched (counts zeroed before, read after).  The published pose must end
    within 0.05 m of the truth in x and y and 0.05 rad in rotation, its
    z above the truth by less than the DDA beam's bias bound
    (``all_options.z_bias_bound``: the DDA beam lifts z in this world, in
    the JAX engine alike); the raw pose of the first scan after the
    landmark within 0.05 m / 0.05 rad.  The PCD dump must read back, the
    inspection calls return the JAX engine's shapes.  Then the split of a
-   step: normals on the host, the weighted draws, trilinear sampling,
-   the DDA march;
+   step: normals on the host, the weighted draws, the trilinear
+   likelihood and M4 in it, the DDA beam and M3 in it;
 10. the trilinear Tier-3 gate (``tools/run_tier3.py --interp
    trilinear``, the three variants at 220 steps), beside the JAX
    package's record ``docs/TIER3_GATE_TRILINEAR.json``; launch counts
-   zeroed before and read after; a failed gate raises;
+   zeroed before and read after (M4 and M2, both graphs replayed at
+   capacity 512); a failed gate raises;
 11. the fleet at full width (BASELINE config 5, ``tools/fleet.py``), in a
    child process at the 6x1x1 pose grid (``MCL_G_*``, read at import):
    1024 robots x 10,240 particles sharing the flagship map, 96 likelihood
@@ -99,9 +110,12 @@ time):
    state and draws; K1 and K2 at one robot's fleet shapes against their
    plain versions as in phase 4, and the split of a robot's step as in
    phase 5.  Then ``parallel.fleet_filter_step``
-   (``torch.func.vmap`` of the ``spmd_safe`` step, tiers 2/2) at 128 x
+   (``torch.func.vmap`` of the ``spmd_safe`` step, tiers 2/2: M4 and M2
+   through their vmap rules, one launch each a fleet step) at 128 x
    10,240 (robots apart as above), its peak memory, two robots within
-   atol 1e-5 of the single-robot ``spmd_safe`` step; last, eight robots' grouped steps
+   atol 1e-5 of the single-robot ``spmd_safe`` step, then one step at
+   1024 robots (its time and peak memory, or that it ran out of memory);
+   last, eight robots' grouped steps
    under ``torch.profiler`` for the fleet's device-busy share;
 12. the particle split on the card: ``parallel.sharded_filter_step`` over
    NCCL with a world of 1 on the main path's 1,048,576-particle state
@@ -113,12 +127,15 @@ time):
 13. the port's tools, each in a child process (its lines echoed, a
    non-zero exit fails the smoke): the bench (``tools/bench.py
    --processes 3``, every row: steady (graphed), steady_eager,
-   ``push_cloud``, fallback, trilinear, global mode; its steady steps must
-   run K1 and K2 at tiers 0/0 from both graphs, and its launch counts go
-   on phase 4's K1-K3 rows as
+   ``push_cloud``, fallback, trilinear, global mode, each with its routes;
+   its steady steps must run K1 and K2 at tiers 0/0 from both graphs, its
+   trilinear steps replay both graphs at tiers 2/0, and its launch counts
+   go on phase 4's K1-K3 rows as
    ``bench_launches``), the small-count sweep (``tools/exp_small.py``, 64
-   / 512 / 16,384 particles, rows also in ``chiprun_out/exp_small.jsonl``)
-   and the raycast harness (``tools/benchmark_raycast.py``).  It runs
+   / 512 / 16,384 particles, rows also in ``chiprun_out/exp_small.jsonl``;
+   the 64-particle step replays both graphs) and the raycast harness
+   (``tools/benchmark_raycast.py``: each march as kernel and plain loop,
+   the kernel bit-equal to it).  It runs
    after the profiled step: the children are processes of their own.
 
 Phase 6 ends with where a lone call of G3 and G4 spends its ``time_ms``
@@ -256,7 +273,7 @@ def graph_phase(eng, scan, card, steps=STEADY_STEPS, chain=CHAIN_STEPS):
     routes = routes_since(eng, before)
     entry = next(iter(eng._graphs.values()))
     a_ms = time_ms(entry.graph_a.replay, 5)
-    b_ms = time_ms(entry.graph_b.replay, 5)
+    b_ms = time_ms(entry.backs[(True, True)].graph.replay, 5)
     med = statistics.median
     print(f"phase 5 graphed step (_step): median {med(g_ms):.2f} ms, max "
           f"{max(g_ms):.2f} ms over {steps} steps, routes {routes}; eager "
@@ -297,6 +314,153 @@ def graph_phase(eng, scan, card, steps=STEADY_STEPS, chain=CHAIN_STEPS):
     return g_ms, e_ms, a_ms, b_ms
 
 
+TIER2_GRAPHS = {
+    # name -> (particles, tools.bench.build keywords, the tiers it runs)
+    "trilinear-1M": (1 << 20, dict(interp="trilinear"), {(2, 0)}),
+    "small-64": (64, {}, {(2, 2)}),
+}
+
+
+def tier2_graph_phase(card, chain=CHAIN_STEPS, device="cuda"):
+    """Phase 5's tier-2 graphs: for each of ``TIER2_GRAPHS`` an engine of
+    its own (``tools.bench.build``), two steps through ``_step`` (the
+    warm-up and the captures), then ``chain`` chained graphed steps and as
+    many eager ``_measurement_step`` steps on the same draws, each timed on
+    the host between two syncs: every output bit-equal, every graphed step
+    replaying both graphs at the expected tiers.  M2-M4, K1 and K2 counted
+    over the graphed chain (zeroed just before it, read just after).
+    Returns the launches by name."""
+    import torch
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.tools import bench, sharded
+
+    counted = dict(tier2_kernels(), like=og.grouped_like_score,
+                   beam=og.grouped_beam_pen)
+    out = {}
+    for name, (n, kw, want_tiers) in TIER2_GRAPHS.items():
+        eng, _, args = bench.build(n, device, **kw)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(6)
+        keeps = eng.keeps(args[2], args[4])
+        draws = [eng.draw_step(*keeps, gen=gen) for _ in range(chain + 2)]
+        runs = {}
+        for kind, step in (("warm", eng._step), ("graphed", eng._step),
+                           ("eager", eng._measurement_step)):
+            sel = draws[:2] if kind == "warm" else draws[2:]
+            if kind == "graphed":
+                for k in counted.values():
+                    k.launches = 0
+                before = dict(eng.step_routes)
+            a, st, outs, ms = list(args), eng.pstate, [], []
+            for d in sel:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = step(st, *a, d)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                outs.append(o)
+                st = o[0]
+                a[10], a[11], a[8], a[9] = o[1:5]
+            if kind == "graphed":
+                launches = {k: f.launches for k, f in counted.items()}
+                routes = routes_since(eng, before)
+            runs[kind] = (outs, ms)
+        same = all(sharded.outputs_equal(g, e) for g, e in
+                   zip(runs["graphed"][0], runs["eager"][0]))
+        tiers = {(o[5]["tier_like"], o[5]["tier_beam"])
+                 for o in runs["eager"][0]}
+        med = statistics.median
+        print(f"phase 5 tier-2 graphs {name}: {n} particles, {chain} chained "
+              f"graphed steps bit-equal to {chain} eager ones on the same "
+              f"draws {same}, routes {routes}, tiers {sorted(tiers)}, "
+              f"launches {launches}; graphed median "
+              f"{med(runs['graphed'][1]):.3f} ms (max "
+              f"{max(runs['graphed'][1]):.3f}), eager median "
+              f"{med(runs['eager'][1]):.3f} ms (max "
+              f"{max(runs['eager'][1]):.3f}) {card}", flush=True)
+        assert same, f"{name}: a graphed step differs from the eager step"
+        assert routes == {"graph": chain}, routes
+        assert tiers == want_tiers, tiers
+        assert launches["field"] == chain, launches
+        out[name] = launches
+        del eng, args, draws, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def fallback_split(card, device="cuda", n=1 << 20, steps=5):
+    """Phase 5's split of the bench's fallback row (``tools/bench.py``):
+    an engine of its own at ``n`` particles put at the wide ``initial_pose``
+    (``bench.WIDE_COV``), the step on that state through ``_step``
+    ``steps`` times after one warm-up (host clock between syncs; graph A
+    replayed, the rest eagerly after the box check), then each layer of
+    the remainder timed alone on the front's outputs (``time_ms``, 5
+    runs).  Returns the layers' ms."""
+    import torch
+    from mcl_3dl_tpu_torch.engine import sphere_num_steps
+    from mcl_3dl_tpu_torch.models.beam import beam_measure, march_sphere
+    from mcl_3dl_tpu_torch.models.likelihood import (box_queries,
+                                                     likelihood_measure)
+    from mcl_3dl_tpu_torch.tools import bench, time_ms
+
+    eng, _, args = bench.build(n, device)
+    eng.initial_pose(np.zeros(3), bench.IDENT, bench.WIDE_COV)
+    st = eng.pstate
+    bench.steps(eng, st, args, 1, chain=False)            # the warm-up
+    before = dict(eng.step_routes)
+    _, times, tiers, _ = bench.steps(eng, st, args, steps, chain=False)
+    routes = routes_since(eng, before)
+    p = eng.params
+    lp, bp = p.likelihood, p.beam
+    df, df_beam = eng.map.df, eng.map.df_beam
+    origins = args[5]
+    fr = eng._step_front(st, df, df_beam, *args[2:6])
+    fits = fr.fits()
+    grouped = eng.group_layout(fr.group, fits)
+    rmat = grouped[0]
+    like = (df, st.pos, st.rot, fr.like_pts, fr.like_valid,
+            lp.match_dist_min, lp.match_dist_flat, lp.match_weight)
+    kw = dict(map_grid_min=p.map_grid_min, map_grid_max=p.map_grid_max,
+              hit_range=bp.hit_range, beam_likelihood_min=bp.beam_likelihood,
+              num_points_default=bp.num_points,
+              sin_total_ref=float(np.sin(bp.ang_total_ref)),
+              add_penalty_short_only_mode=bp.add_penalty_short_only_mode,
+              num_steps=sphere_num_steps(p))
+    ends = torch.einsum("bj,nij->nbi", fr.beam_pts, rmat) + st.pos[:, None]
+    begins = (torch.einsum("bj,nij->nbi", origins[fr.beam_labels], rmat)
+              + st.pos[:, None])
+    layers = {
+        "front (graph A's work, eager)": time_ms(
+            lambda: eng._step_front(st, df, df_beam, *args[2:6]), 5,
+            device),
+        "fits read + layout": time_ms(
+            lambda: eng.group_layout(fr.group, fr.fits()), 5, device),
+        "likelihood (box check, then its tier)": time_ms(
+            lambda: likelihood_measure(*like, active=fr.mask, rmat=rmat,
+                                       grouped=grouped[1]), 5, device),
+        "of it box_queries": time_ms(
+            lambda: box_queries(df, st.pos, rmat, fr.like_pts), 5, device),
+        "beam at tier 2": time_ms(lambda: beam_measure(
+            df_beam, st.pos, st.rot, fr.beam_pts, fr.beam_labels,
+            fr.beam_valid, origins, **kw), 5, device),
+        "of it M2 march_sphere": time_ms(lambda: march_sphere(
+            df_beam, begins, ends, p.map_grid_min, p.map_grid_max,
+            bp.hit_range, kw["num_steps"]), 5, device),
+    }
+    tier = likelihood_measure(*like, active=fr.mask, rmat=rmat,
+                              grouped=grouped[1])[2]
+    print(f"phase 5 fallback split at {n} particles (the wide spread): "
+          f"fits {fits}, likelihood tier {tier}, step tiers {tiers}, routes "
+          f"{routes}, _step median {statistics.median(times):.3f} ms (max "
+          f"{max(times):.3f}) over {steps}; layers (ms): " + "; ".join(
+              f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}",
+          flush=True)
+    del eng, args, fr, grouped, begins, ends
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return layers
+
+
 def lone_calls(where):
     """Phase 6's G3 and G4 at the JAX script's size: where a lone call's
     ``time_ms`` goes (the kernel alone on an idle card, and what the host
@@ -311,9 +475,11 @@ def lone_calls(where):
 
 
 def report(results, card, kname, src, replaces, kernel, plain, bytes_, ops,
-           launches_n, sel, phase=4):
+           launches_n, sel, phase=4, library=None):
     """Hold ``kernel`` against ``plain`` on the slots ``sel`` (an index
-    tensor), time both, and record the kernel's line in ``results``."""
+    tensor), time both (and ``library``, one PyTorch call for the same
+    function, where given), and record the kernel's line in
+    ``results``."""
     import torch
     from mcl_3dl_tpu_torch.tools import bound, split, time_ms
 
@@ -328,14 +494,16 @@ def report(results, card, kname, src, replaces, kernel, plain, bytes_, ops,
     ms = time_ms(kernel, 25)
     dev_ms, host_ms = split(kernel)
     plain_ms = time_ms(plain, 3)
+    lib_ms = time_ms(library, 25) if library is not None else None
     bound_ms, by = bound(bytes_, ops)
     results.append(dict(name=kname, route="cuda", source=src,
                         replaces=replaces, launches=launches_n,
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=by, library_ms=None))
+                        bound_ms=bound_ms, bound_by=by, library_ms=lib_ms))
+    lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
     print(f"phase {phase} {kname}: bit-equal on {sel.numel()} slots, {ms:.4f} ms "
           f"(device {dev_ms:.4f} + host {host_ms:.4f} a call; bound "
-          f"{bound_ms:.4f} ms by {by}), plain {plain_ms:.2f} ms {card}",
+          f"{bound_ms:.4f} ms by {by}), plain {plain_ms:.2f} ms{lib} {card}",
           flush=True)
 
 
@@ -479,6 +647,32 @@ K2_SRC = ("mcl_3dl_tpu_torch/csrc/grouped.cu",
 M1_SRC = ("mcl_3dl_tpu_torch/csrc/beam_march.cu",
           "none: XLA lax.fori_loop, mcl_3dl_tpu/models/beam.py:269-331 "
           "(raycast_fixed, called at :488)")
+T2_CU = "mcl_3dl_tpu_torch/csrc/tier2.cu"
+TIER2_SRC = {
+    "march_sphere": (T2_CU, "none: XLA lax.while_loop, mcl_3dl_tpu/models/"
+                     "beam.py:132 (raycast_df, :43-156)"),
+    "march_dda": (T2_CU, "none: XLA lax.while_loop, mcl_3dl_tpu/models/"
+                  "beam.py:259 (raycast_occ, :159-266)"),
+    "sample_field": (T2_CU, "none: the gather XLA fuses into the tier-2 "
+                     "likelihood, mcl_3dl_tpu/models/likelihood.py:170-187"),
+}
+TIER2_SRC["sample_field_nearest"] = TIER2_SRC["sample_field"]
+# the drive that gives each tier-2 row its launches (counts zeroed just
+# before it, read just after) and the row's count there: the trilinear
+# gate's tier-2 beam (phase 10), the DDA and trilinear all-options drive
+# at 1M (phase 9), the 64-particle graphed chain (phase 5)
+TIER2_PATH = {"march_sphere": ("phase 10", "sphere"),
+              "march_dda": ("phase 9", "dda"),
+              "sample_field": ("phase 9", "field"),
+              "sample_field_nearest": ("phase 5 small-64", "field")}
+
+
+def tier2_kernels():
+    """M2-M4's wrappers by their launch-count key."""
+    from mcl_3dl_tpu_torch.map.distance_field import sample_field
+    from mcl_3dl_tpu_torch.models.beam import march_dda, march_sphere
+
+    return {"sphere": march_sphere, "dda": march_dda, "field": sample_field}
 
 
 def model_layers(eng, inp, k1_ms, k2_ms):
@@ -645,9 +839,9 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
     assert launches["like"] > 0 and launches["beam"] > 0, launches
     assert routes.get("graph", 0) >= 0.99 * robots * steps, routes
     # the device time of a robot's graphs, each replay timed alone
-    entry = next(e for e in eng._graphs.values() if e.graph_b is not None)
+    entry = next(e for e in eng._graphs.values() if (True, True) in e.backs)
     a_ms = time_ms(entry.graph_a.replay, 5)
-    b_ms = time_ms(entry.graph_b.replay, 5)
+    b_ms = time_ms(entry.backs[(True, True)].graph.replay, 5)
     print(f"phase 11 a robot's graphs: A {a_ms:.3f} ms + B {b_ms:.3f} ms of "
           f"device time against {ms / robots:.3f} ms a robot in the timed "
           f"fleet step: the card busy {100.0 * (a_ms + b_ms) * robots / ms:.1f}%"
@@ -687,13 +881,17 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
     del inp, warm, out, nxt, args, draws
     eng.pstate = start
 
-    # the batched fleet (tier 2) at BATCHED_ROBOTS x 10,240
+    # the batched fleet (tier 2) at BATCHED_ROBOTS x 10,240: M4 and M2
+    # through their vmap rules, one launch each a fleet step
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     bstep = fleet_filter_step(eng)
     args = fleet.apart(fleet.inputs(eng, batched, scan), APART_M)
     draws = fleet.given_draws(eng, args)
+    tier2 = tier2_kernels()
     torch.cuda.synchronize()
+    for fn in tier2.values():
+        fn.launches = 0
     t1 = time.perf_counter()
     bout = bstep(*args, None, draws)
     torch.cuda.synchronize()
@@ -703,6 +901,7 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
     torch.cuda.synchronize()
     b_ms = (time.perf_counter() - t1) * 1e3
     bpeak = torch.cuda.max_memory_allocated()
+    b_launches = {k: fn.launches for k, fn in tier2.items()}
     baux = bout[5]
     tiers = sorted(set(zip(baux["tier_like"].tolist(),
                            baux["tier_beam"].tolist())))
@@ -723,14 +922,39 @@ def fleet_child(robots=FLEET_ROBOTS, batched=BATCHED_ROBOTS,
           f" ms, step {b_ms:.1f} ms, {batched / (b_ms / 1e3):.2f} "
           f"robot-updates/s, tiers {tiers}, published poses {b_gap:.4f} m "
           f"apart at least, peak memory "
-          f"{bpeak / 2**30:.2f} GiB, two robots against the single-robot "
+          f"{bpeak / 2**30:.2f} GiB, launches over the two fleet steps "
+          f"{b_launches}, two robots against the single-robot "
           f"spmd_safe step: max |e_pos, pub_pos| diff {max(errs):.3e} "
           f"{card}", flush=True)
     assert tiers == [(2, 2)], tiers
+    assert b_launches["field"] == 2 and b_launches["sphere"] == 2, b_launches
     assert bool(torch.isfinite(bnext[5]["pub_pos"]).all())
     assert max(errs) <= 1e-5, errs
     assert b_gap > APART_M / 2, b_gap
     del args, draws, bout, bnext
+
+    # one batched fleet step at FLEET_ROBOTS robots: does it fit now?
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        args = fleet.apart(fleet.inputs(eng, robots, scan), APART_M)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        big = bstep(*args)
+        torch.cuda.synchronize()
+        big_ms = (time.perf_counter() - t1) * 1e3
+        fits = bool(torch.isfinite(big[5]["pub_pos"]).all())
+        note = (f"step {big_ms:.1f} ms (the first at this size), "
+                f"{robots / (big_ms / 1e3):.2f} robot-updates/s, published "
+                f"poses finite {fits}")
+        del big
+    except torch.OutOfMemoryError as e:
+        note = f"out of memory ({str(e).splitlines()[0]})"
+    print(f"phase 11 batched fleet {robots}x{cap}: {note}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}",
+          flush=True)
+    args = None
+    torch.cuda.empty_cache()
 
     # the grouped fleet's device-busy share: PROFILED_ROBOTS robots'
     # steps under torch.profiler (last: once the profiler has run, later
@@ -861,8 +1085,16 @@ def tools_phase(card):
     for routes in ex["routes_steady"]:
         assert set(routes) == {"graph"} or not any(
             n for k, n in routes.items() if k != "graph"), routes
-    assert len(stdout["exp_small"]) == 3
-    assert sum("casts" in line for line in stdout["benchmark_raycast"]) == 4
+    # the trilinear row replays both graphs at tiers 2/0
+    assert ex["trilinear_tiers"] == [[2, 0]], ex["trilinear_tiers"]
+    for routes in ex["trilinear_routes"]:
+        assert set(routes) == {"graph"}, routes
+    rows = [json.loads(line) for line in stdout["exp_small"]]
+    assert [r["num_particles"] for r in rows] == [64, 512, 16384], rows
+    assert set(rows[0]["routes"]) == {"graph"}, rows[0]["routes"]
+    casts = [line for line in stdout["benchmark_raycast"] if "casts" in line]
+    assert len(casts) == 4 and all("bit-equal to plain True" in line
+                                   for line in casts), casts
     return bench
 
 
@@ -982,14 +1214,14 @@ def gate_phase(card):
     """Phase 8: the Tier-3 gate (with-imu, no-imu, no-odom at 220 steps)
     through the port on the card, launch counts zeroed before and read
     after; a failed gate raises.  The result goes to
-    chiprun_out/tier3_gate.json."""
+    chiprun_out/tier3_gate.json.  Returns M2-M4's launches."""
     import torch
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
     from mcl_3dl_tpu_torch.tools import run_tier3
 
     kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
-               "local": olg.local_score}
+               "local": olg.local_score, **tier2_kernels()}
     torch.cuda.synchronize()
     for fn in kernels.values():
         fn.launches = 0
@@ -1013,16 +1245,21 @@ def gate_phase(card):
               flush=True)
     print(f"phase 8 gate launches {launches} {card}", flush=True)
     assert result["pass"], result
+    assert launches["sphere"] > 0, launches        # the beam at tier 2
+    return {k: launches[k] for k in tier2_kernels()}
 
 
 def all_options_phase(card):
     """Phase 9: the all-options drive of ``tools/all_options.py`` at
     1,048,576 particles with the launch counts zeroed before and read
-    after, its checks, then the split of a step on the final state."""
+    after, its checks, then the split of a step on the final state.
+    Returns M2-M4's launches."""
     import torch
     from mcl_3dl_tpu_torch import worlds
     from mcl_3dl_tpu_torch.engine import dda_num_steps
-    from mcl_3dl_tpu_torch.models.beam import beam_measure
+    from mcl_3dl_tpu_torch.map.distance_field import sample_field
+    from mcl_3dl_tpu_torch.math import quat as mq
+    from mcl_3dl_tpu_torch.models.beam import beam_measure, march_dda
     from mcl_3dl_tpu_torch.models.likelihood import likelihood_measure
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
@@ -1031,8 +1268,11 @@ def all_options_phase(card):
 
     kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
                "local": olg.local_score}
+    tier2 = tier2_kernels()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    for fn in tier2.values():
+        fn.launches = 0
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1043,6 +1283,7 @@ def all_options_phase(card):
                  log=lambda s: print(f"phase 9 {s} {card}", flush=True),
                  out_dir="chiprun_out")
     launches = {k: fn.launches for k, fn in kernels.items()}
+    t2_launches = {k: fn.launches for k, fn in tier2.items()}
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     pos_err, rot_err = out["pose_err"]
@@ -1050,7 +1291,8 @@ def all_options_phase(card):
     steady = sorted(times[1:])
     print(f"phase 9 all options: {ao.NUM_PARTICLES} particles, {len(times)} "
           f"measurements in {secs:.2f} s, tiers {sorted(set(out['tiers']))}, "
-          f"launches {launches}, published pose err {pos_err:.4f} m (x-y "
+          f"launches {launches} (tier 2: {t2_launches}), published pose "
+          f"err {pos_err:.4f} m (x-y "
           f"{out['xy_err']:.4f} m, z {out['z']:.4f} m) / {rot_err:.4f} rad "
           f"(raw z {out['raw_z']:.4f} m), raw pose after the landmark "
           f"{raw_err[0]:.4f} m / {raw_err[1]:.4f} rad, push_cloud median "
@@ -1063,6 +1305,7 @@ def all_options_phase(card):
           f"{out['beam_status']}; {out['diagnostics']} {card}", flush=True)
     assert set(out["tiers"]) == {(2, 2)}, out["tiers"]
     assert all(n == 0 for n in launches.values()), launches
+    assert t2_launches["dda"] > 0 and t2_launches["field"] > 0, t2_launches
     assert out["xy_err"] < 0.05 and rot_err < 0.05, out["pose_err"]
     assert abs(out["z"]) < ao.z_bias_bound(eng.params), out["z"]
     assert raw_err[0] < 0.05 and raw_err[1] < 0.05, raw_err
@@ -1099,6 +1342,13 @@ def all_options_phase(card):
               min_dist_thr_sq=p.min_dist_thr_sq)
     args = (st.pos, st.rot, st.active_mask(), eng.map.df, eng.map.df_beam,
             like_pts, like_valid, beam_pts, beam_labels, beam_valid, cloud[3])
+    rmat = mq.rotation_matrix(mq.normalize(st.rot))
+    queries = torch.einsum("kj,nij->nki", like_pts, rmat) + st.pos[:, None]
+    ends = torch.einsum("bj,nij->nbi", beam_pts, rmat) + st.pos[:, None]
+    begins = (torch.einsum("bj,nij->nbi", cloud[3][beam_labels], rmat)
+              + st.pos[:, None])
+    dda = (bp.hit_range, bp.filter_label_max, dda_num_steps(p),
+           bp.ray_angle_half, p.min_dist_thr_sq)
     layers = {
         "normals on the host": time_ms(
             lambda: eng.scan_normals(pts_ds, cloud[0].shape[0]), 5),
@@ -1107,9 +1357,13 @@ def all_options_phase(card):
             eng.map.df, st.pos, st.rot, like_pts, like_valid,
             lp.match_dist_min, lp.match_dist_flat, lp.match_weight,
             trilinear=True), 5),
-        "DDA beam march": time_ms(lambda: beam_measure(
+        "of it M4 sample_field": time_ms(
+            lambda: sample_field(eng.map.df, queries, True), 5),
+        "DDA beam model": time_ms(lambda: beam_measure(
             eng.map.df_beam, st.pos, st.rot, beam_pts, beam_labels,
             beam_valid, cloud[3], **kw), 5),
+        "of it M3 march_dda": time_ms(
+            lambda: march_dda(eng.map.occ, begins, ends, *dda), 5),
         "measure_models total": time_ms(lambda: eng._measure_models(*args), 5),
     }
     layers["rest of push_cloud (PF tail, host)"] = (
@@ -1118,20 +1372,22 @@ def all_options_phase(card):
         - layers["measure_models total"])
     print("phase 9 split (ms): " + "; ".join(
         f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
+    return t2_launches
 
 
 def trilinear_gate_phase(card):
     """Phase 10: the Tier-3 gate with ``--interp trilinear`` (three
     variants, 220 steps), launch counts zeroed before and read after,
     each variant beside the JAX package's record; a failed gate raises.
-    The result goes to chiprun_out/tier3_gate_trilinear.json."""
+    The result goes to chiprun_out/tier3_gate_trilinear.json.  Returns
+    M2-M4's launches."""
     import torch
     from mcl_3dl_tpu_torch.ops import grouped as og
     from mcl_3dl_tpu_torch.ops import local_gather as olg
     from mcl_3dl_tpu_torch.tools import run_tier3
 
     kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
-               "local": olg.local_score}
+               "local": olg.local_score, **tier2_kernels()}
     torch.cuda.synchronize()
     for fn in kernels.values():
         fn.launches = 0
@@ -1159,6 +1415,8 @@ def trilinear_gate_phase(card):
     print(f"phase 10 trilinear gate launches {launches} {card}", flush=True)
     assert result["pass"] and result["interp"] == "trilinear", result
     assert launches["like"] == 0 and launches["beam"] == 0, launches
+    assert launches["field"] > 0 and launches["sphere"] > 0, launches
+    return {k: launches[k] for k in tier2_kernels()}
 
 
 class Tee:
@@ -1234,9 +1492,10 @@ def main() -> int:
     ident = np.array([0.0, 0.0, 0.0, 1.0])
     kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
                "local": olg.local_score, "march": march_fixed}
+    tier2 = tier2_kernels()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
+    for fn in (*kernels.values(), *tier2.values()):
         fn.launches = 0
     steps, seen = [], [dict(eng.step_routes)]
 
@@ -1248,6 +1507,7 @@ def main() -> int:
 
     t = gp.drive(eng, rng, on_step=on_step)
     launches = {k: fn.launches for k, fn in kernels.items()}
+    tier2_drive = {k: fn.launches for k, fn in tier2.items()}
     peak = torch.cuda.max_memory_allocated()
     print("phase 3 per step (tier_like, tier_beam, raw z, route of _step): "
           + " ".join(f"{a},{b},{r.raw_pos[2]:.4f},{rt}"
@@ -1268,7 +1528,8 @@ def main() -> int:
     steady = [dt for dt, a, b, _, _ in steps if (a, b) == (0, 0)][1:]
     step_s = statistics.median(steady)
     print(f"phase 3 main path: {gp.NUM_PARTICLES} particles, {len(steps)} "
-          f"measurements, launches {launches}, published pose err {pos_err:.4f} m"
+          f"measurements, launches {launches} (tier 2: {tier2_drive}), "
+          f"published pose err {pos_err:.4f} m"
           f" / {rot_err:.4f} rad (raw mean {raw_err:.4f} m), push_cloud median {step_s * 1e3:.2f} ms over "
           f"{len(steady)} steady steps, "
           f"{gp.NUM_PARTICLES * (96 + 3) / step_s:.4e} particle-point evals/s, "
@@ -1307,6 +1568,16 @@ def main() -> int:
                 launches["march"], m1_kept)
     del m1_args
 
+    # M2-M4 on the last state's whole tier-2 working set: 1M x 96 queries,
+    # 1M x 3 rays (launches set from their drives' counts below)
+    cases = gp.tier2_cases(eng, inp)
+    for kname in ("sample_field", "sample_field_nearest", "march_sphere",
+                  "march_dda"):
+        kernel, plain, (nb, ops), kept, library = cases.pop(kname)
+        report_here(kname, *TIER2_SRC[kname], kernel, plain, nb, ops, None,
+                    kept, library=library)
+    del cases
+
     # ---- phase 5: per-layer split of a steady step (CUDA events, 5 runs)
     kms = {r["name"]: r["ms"] for r in results}
     layers = model_layers(eng, inp, kms["like_score"], kms["beam_pen"])
@@ -1319,6 +1590,9 @@ def main() -> int:
         f"{k} {v:.3f}" for k, v in layers.items()) + f" {card}", flush=True)
     print("phase 5 tier-1 split at 1M x 96 (ms): " + "; ".join(
         f"{k} {v:.3f}" for k, v in tier1.items()) + f" {card}", flush=True)
+    tier2_launches = {f"phase 5 {k}": v
+                      for k, v in tier2_graph_phase(card).items()}
+    fallback_split(card)
 
     # steady-state push_cloud time over STEADY_STEPS more scans
     times, tiers, before = [], set(), dict(eng.step_routes)
@@ -1347,13 +1621,20 @@ def main() -> int:
     global_phase(card, report_here)
 
     # ---- phase 8: the Tier-3 gate through the port
-    gate_phase(card)
+    tier2_launches["phase 8"] = gate_phase(card)
 
     # ---- phase 9: every option at full width
-    all_options_phase(card)
+    tier2_launches["phase 9"] = all_options_phase(card)
 
     # ---- phase 10: the trilinear Tier-3 gate
-    trilinear_gate_phase(card)
+    tier2_launches["phase 10"] = trilinear_gate_phase(card)
+    for r in results:          # M2-M4's rows: their drives' launches
+        if r["name"] in TIER2_PATH:
+            path, key = TIER2_PATH[r["name"]]
+            r["launches"] = tier2_launches[path][key]
+            r["launches_path"] = path
+    print(f"phases 3-10 tier-2 launches: drive {tier2_drive}, "
+          f"{tier2_launches} {card}", flush=True)
 
     # ---- phase 11: the fleet at full width (a child at the fleet's grid)
     results += fleet_phase(card)
@@ -1384,7 +1665,8 @@ def main() -> int:
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     sys.stdout.flush()
     return 0
 

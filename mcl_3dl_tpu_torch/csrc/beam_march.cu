@@ -38,19 +38,13 @@
 
 #include <cstdint>
 
+#include "field.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
+using mcl::Field;
 
-struct Field {
-  const uint8_t* codes;  // [nx, ny, nz]
-  const float* origin;   // [3], weighted space
-  int nx, ny, nz;
-  float wx, wy, wz;      // dist weights, as f32
-  float cell;            // as f32
-  float scale;           // f32(trunc / 255)
-  float trunc;           // f32(trunc): out-of-map distance
-};
+constexpr int THREADS = 256;
 
 struct March {
   int num_steps;
@@ -58,23 +52,6 @@ struct March {
   float radius;          // f32(sqrt(2) * map_grid_max / 2)
   float d_entry_thr;     // f32(trunc * 0.99)
 };
-
-// nearest-cell distance at q (DistanceField.sample_nearest)
-__device__ __forceinline__ float sample(const Field& f, float ox, float oy,
-                                        float oz, float qx, float qy,
-                                        float qz) {
-  const int ix = __float2int_rn(
-      __fdiv_rn(__fsub_rn(__fmul_rn(qx, f.wx), ox), f.cell));
-  const int iy = __float2int_rn(
-      __fdiv_rn(__fsub_rn(__fmul_rn(qy, f.wy), oy), f.cell));
-  const int iz = __float2int_rn(
-      __fdiv_rn(__fsub_rn(__fmul_rn(qz, f.wz), oz), f.cell));
-  if (ix < 0 || ix >= f.nx || iy < 0 || iy >= f.ny || iz < 0 || iz >= f.nz)
-    return f.trunc;
-  const uint8_t c =
-      __ldg(f.codes + ((int64_t)ix * f.ny + iy) * f.nz + iz);
-  return __fmul_rn((float)c, f.scale);
-}
 
 __global__ void __launch_bounds__(THREADS)
 march_fixed_kernel(const float* __restrict__ begin,
@@ -93,9 +70,9 @@ march_fixed_kernel(const float* __restrict__ begin,
   float t_hit = 0.0f, d_hit = 0.0f, t_entry = -1.0f, d_entry = f.trunc;
   for (int i = 1; i < m.num_steps && (float)i < lb; ++i) {
     const float ti = __double2float_rn((double)i * (double)m.grid);
-    const float d = sample(f, ox, oy, oz, __fadd_rn(bx, __fmul_rn(dx, ti)),
-                           __fadd_rn(by, __fmul_rn(dy, ti)),
-                           __fadd_rn(bz, __fmul_rn(dz, ti)));
+    const float d = mcl::sample_nearest(
+        f, ox, oy, oz, __fadd_rn(bx, __fmul_rn(dx, ti)),
+        __fadd_rn(by, __fmul_rn(dy, ti)), __fadd_rn(bz, __fmul_rn(dz, ti)));
     if (d < m.d_entry_thr && t_entry < 0.0f) {
       t_entry = ti;
       d_entry = d;

@@ -1,7 +1,6 @@
 // The kernels' binding to PyTorch: one operator a C entry point of
-// grouped.cu, local_gather.cu, beam_march.cu and gather_bench.cu,
-// registered with torch's
-// dispatcher for CUDA tensors.
+// grouped.cu, local_gather.cu, beam_march.cu, tier2.cu and
+// gather_bench.cu, registered with torch's dispatcher for CUDA tensors.
 //
 // Host-only C++: built with the host compiler against torch's headers and
 // libraries (ops/build.py), never with <torch/extension.h>, which would
@@ -25,6 +24,7 @@
 #include <torch/library.h>
 
 #include <cstdint>
+#include <optional>
 #include <string>
 #include <tuple>
 #include <vector>
@@ -48,6 +48,19 @@ int mcl_march_fixed(const float*, const float*, const float*, const uint8_t*,
                     const float*, bool*, float*, float*, int, int, int, int,
                     int, float, float, float, float, float, float, float,
                     float, float, cudaStream_t);
+int mcl_sample_field(const float*, const uint8_t*, const int32_t*,
+                     const float*, float*, int64_t, int, int, int, float,
+                     float, float, float, float, float, int, cudaStream_t);
+int mcl_march_sphere(const float*, const float*, const float*, const float*,
+                     const uint8_t*, const float*, bool*, float*, float*,
+                     float*, float*, int64_t, int, int, int, int, float, float,
+                     float, float, float, float, float, float, float,
+                     cudaStream_t);
+int mcl_march_dda(const float*, const float*, const float*, const bool*,
+                  const int*, const bool*, const int64_t*, const uint8_t*,
+                  const float*, bool*, float*, int64_t, int, int, int, int,
+                  int, float, float, int64_t, float, float, int,
+                  cudaStream_t);
 int mcl_row_gather(const void*, const int*, void*, int, int, int, int,
                    cudaStream_t);
 int mcl_flat_gather(const float*, const int*, float*, int, int, int, int,
@@ -151,8 +164,10 @@ T* ptr(const Tensor& t) {
 }
 
 constexpr auto I32 = c10::ScalarType::Int;
+constexpr auto I64 = c10::ScalarType::Long;
 constexpr auto F32 = c10::ScalarType::Float;
 constexpr auto U8 = c10::ScalarType::Byte;
+constexpr auto BOOL = c10::ScalarType::Bool;
 
 // ---- K1, K2 (grouped.cu)
 
@@ -290,6 +305,130 @@ std::tuple<Tensor, Tensor, Tensor> march_fixed(
   return {found, cpos, sin_ang};
 }
 
+// ---- M2, M3, M4 (tier2.cu)
+
+void field3(const Tensor& field, const char* name) {
+  TORCH_CHECK_VALUE(field.dim() == 3, name, " must be [nx, ny, nz], got ",
+                    shape_str(field.sizes()));
+}
+
+// q [Q, 3] f32, field [nx, ny, nz] u8, packed [nx * ny * nz, 2] i32 or
+// None (read with trilinear only), origin [3] f32
+Tensor sample_field(const Tensor& q, const Tensor& field,
+                    const std::optional<Tensor>& packed, const Tensor& origin,
+                    double wx, double wy, double wz, double cell,
+                    double scale, double trunc, bool trilinear) {
+  const int64_t n = dim0(q, 0);
+  const c10::Device dev = q.device();
+  const Shape s_q{n, 3}, s_org{3};
+  field3(field, "field");
+  check(q, "q", F32, &s_q, &dev);
+  check(field, "field", U8, nullptr, &dev);
+  check(origin, "origin", F32, &s_org, &dev);
+  const int32_t* pk = nullptr;
+  if (trilinear && packed.has_value()) {
+    const Shape s_pk{field.numel(), 2};
+    check(*packed, "packed", I32, &s_pk, &dev);
+    pk = ptr<const int32_t>(*packed);
+  }
+  c10::cuda::CUDAGuard guard(dev);
+  Tensor out = at::empty({n}, q.options());
+  launched(mcl_sample_field(ptr<const float>(q), ptr<const uint8_t>(field), pk,
+                            ptr<const float>(origin), ptr<float>(out), n,
+                            i32(field.size(0), "nx"), i32(field.size(1), "ny"),
+                            i32(field.size(2), "nz"), (float)wx, (float)wy,
+                            (float)wz, (float)cell, (float)scale,
+                            (float)trunc, trilinear ? 1 : 0, stream_of(q)),
+           "mcl_sample_field");
+  return out;
+}
+
+// begin, direction [R, 3], max_t, wu [R] f32, field and origin as M1's
+std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor> march_sphere(
+    const Tensor& begin, const Tensor& direction, const Tensor& max_t,
+    const Tensor& wu, const Tensor& field, const Tensor& origin,
+    int64_t num_steps, double wx, double wy, double wz, double cell,
+    double scale, double trunc, double grid, double radius,
+    double d_entry_thr) {
+  const int64_t r = dim0(begin, 0);
+  const c10::Device dev = begin.device();
+  const Shape s_ray{r, 3}, s_r{r}, s_org{3};
+  field3(field, "field");
+  check(begin, "begin", F32, &s_ray, &dev);
+  check(direction, "direction", F32, &s_ray, &dev);
+  check(max_t, "max_t", F32, &s_r, &dev);
+  check(wu, "wu", F32, &s_r, &dev);
+  check(field, "field", U8, nullptr, &dev);
+  check(origin, "origin", F32, &s_org, &dev);
+  c10::cuda::CUDAGuard guard(dev);
+  Tensor found = at::empty({r}, begin.options().dtype(BOOL));
+  Tensor cpos = at::empty({r, 3}, begin.options());
+  Tensor carry = at::empty({3, r}, begin.options());   // d0_hit, t_entry, d_entry
+  float* c = ptr<float>(carry);
+  launched(mcl_march_sphere(ptr<const float>(begin), ptr<const float>(direction),
+                            ptr<const float>(max_t), ptr<const float>(wu),
+                            ptr<const uint8_t>(field), ptr<const float>(origin),
+                            ptr<bool>(found), ptr<float>(cpos), c, c + r,
+                            c + 2 * r, r, i32(field.size(0), "nx"),
+                            i32(field.size(1), "ny"), i32(field.size(2), "nz"),
+                            i32(num_steps, "num_steps"), (float)wx, (float)wy,
+                            (float)wz, (float)cell, (float)scale,
+                            (float)trunc, (float)grid, (float)radius,
+                            (float)d_entry_thr, stream_of(begin)),
+           "mcl_march_sphere");
+  return {found, cpos, carry.select(0, 0), carry.select(0, 1),
+          carry.select(0, 2)};
+}
+
+// begin, direction [R, 3] f32, max_t [R] f32, begin_inside [R] bool,
+// begin_voxel [R, 3] i32; occupied [nx, ny, nz] bool, min_label int64 of
+// that shape, rep_point [nx, ny, nz, reps, 3] u8, origin [3] f32
+std::tuple<Tensor, Tensor> march_dda(
+    const Tensor& begin, const Tensor& direction, const Tensor& max_t,
+    const Tensor& begin_inside, const Tensor& begin_voxel,
+    const Tensor& occupied, const Tensor& min_label, const Tensor& rep_point,
+    const Tensor& origin, int64_t num_steps, double step, double cell,
+    int64_t label_max, double ray_angle_half, double min_dist_thr_sq,
+    bool refine) {
+  const int64_t r = dim0(begin, 0);
+  const c10::Device dev = begin.device();
+  const Shape s_ray{r, 3}, s_r{r}, s_org{3};
+  field3(occupied, "occupied");
+  const Shape s_grid(occupied.sizes().begin(), occupied.sizes().end());
+  TORCH_CHECK_VALUE(rep_point.dim() == 5 && rep_point.size(4) == 3 &&
+                        rep_point.sizes().slice(0, 3) == occupied.sizes(),
+                    "rep_point must be [nx, ny, nz, reps, 3], got ",
+                    shape_str(rep_point.sizes()));
+  check(begin, "begin", F32, &s_ray, &dev);
+  check(direction, "direction", F32, &s_ray, &dev);
+  check(max_t, "max_t", F32, &s_r, &dev);
+  check(begin_inside, "begin_inside", BOOL, &s_r, &dev);
+  check(begin_voxel, "begin_voxel", I32, &s_ray, &dev);
+  check(occupied, "occupied", BOOL, nullptr, &dev);
+  check(min_label, "min_label", I64, &s_grid, &dev);
+  check(rep_point, "rep_point", U8, nullptr, &dev);
+  check(origin, "origin", F32, &s_org, &dev);
+  c10::cuda::CUDAGuard guard(dev);
+  Tensor found = at::empty({r}, begin.options().dtype(BOOL));
+  Tensor cpos = at::empty({r, 3}, begin.options());
+  launched(mcl_march_dda(ptr<const float>(begin), ptr<const float>(direction),
+                         ptr<const float>(max_t), ptr<const bool>(begin_inside),
+                         ptr<const int>(begin_voxel), ptr<const bool>(occupied),
+                         ptr<const int64_t>(min_label),
+                         ptr<const uint8_t>(rep_point),
+                         ptr<const float>(origin), ptr<bool>(found),
+                         ptr<float>(cpos), r, i32(occupied.size(0), "nx"),
+                         i32(occupied.size(1), "ny"),
+                         i32(occupied.size(2), "nz"),
+                         i32(rep_point.size(3), "reps"),
+                         i32(num_steps, "num_steps"), (float)step,
+                         (float)cell, label_max, (float)ray_angle_half,
+                         (float)min_dist_thr_sq, refine ? 1 : 0,
+                         stream_of(begin)),
+           "mcl_march_dda");
+  return {found, cpos};
+}
+
 // ---- G1-G10 (gather_bench.cu)
 
 // (a) G1, G2, G4: tab [rows, width] of `dtype`, idx [rows, 128] i32
@@ -396,6 +535,19 @@ MCL_LIBRARY(MCL_OPS_NS, m) {
         "Tensor field, Tensor origin, int num_steps, float wx, float wy, "
         "float wz, float cell, float scale, float trunc, float grid, "
         "float radius, float d_entry_thr) -> (Tensor, Tensor, Tensor)");
+  m.def("sample_field(Tensor q, Tensor field, Tensor? packed, "
+        "Tensor origin, float wx, float wy, float wz, float cell, "
+        "float scale, float trunc, bool trilinear) -> Tensor");
+  m.def("march_sphere(Tensor begin, Tensor direction, Tensor max_t, "
+        "Tensor wu, Tensor field, Tensor origin, int num_steps, float wx, "
+        "float wy, float wz, float cell, float scale, float trunc, "
+        "float grid, float radius, float d_entry_thr) -> "
+        "(Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def("march_dda(Tensor begin, Tensor direction, Tensor max_t, "
+        "Tensor begin_inside, Tensor begin_voxel, Tensor occupied, "
+        "Tensor min_label, Tensor rep_point, Tensor origin, int num_steps, "
+        "float step, float cell, int label_max, float ray_angle_half, "
+        "float min_dist_thr_sq, bool refine) -> (Tensor, Tensor)");
   m.def("row_gather(Tensor tab, Tensor idx, int off, int width, "
         "ScalarType dtype) -> Tensor");
   m.def("flat_gather(Tensor tab, Tensor idx, int off, int shared) -> Tensor");
@@ -409,6 +561,9 @@ MCL_LIBRARY_IMPL(MCL_OPS_NS, CUDA, m) {
   m.impl("beam_pen", &beam_pen);
   m.impl("local_score", &local_score);
   m.impl("march_fixed", &march_fixed);
+  m.impl("sample_field", &sample_field);
+  m.impl("march_sphere", &march_sphere);
+  m.impl("march_dda", &march_dda);
   m.impl("row_gather", &row_gather);
   m.impl("flat_gather", &flat_gather);
   m.impl("col_gather", &col_gather);

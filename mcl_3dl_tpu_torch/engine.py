@@ -19,11 +19,12 @@ A host shell around one measurement step on the device:
 The measurement tiers are chosen on the host: the ``fits`` flags of both
 models come back in one device-to-host read per step, and ``aux`` reports
 ``tier_like``/``tier_beam`` with the JAX package's ids (0 grouped
-kernel, 1 per-point box kernel, 2 plain gather, -1 model off).
+kernel, 1 per-point box kernel, 2 the whole field: kernel M4, or the
+sphere trace M2 / the DDA march M3 for the beam; -1 model off).
 
 Every ``Params`` option runs: nearest or trilinear sampling
-(``likelihood.interp``; trilinear tracking samples the plain gather,
-global mode samples nearest), the fixed march or the DDA raycast over the
+(``likelihood.interp``; trilinear tracking samples tier 2, global mode
+samples nearest), the fixed march or the DDA raycast over the
 occupancy grid (``beam.use_raycast_using_dda``, which makes the grouped
 beam ineligible), and the uniform or the normal-weighted point sampler
 (``use_random_sampler_with_normal``; normals estimated on the host).
@@ -45,15 +46,19 @@ flags) and ``_step_back`` (the layout, both models, the filter's tail).
 ``_step`` runs ``_measurement_step`` from CUDA graphs where it can
 (``step_graph.py``, the counterpart of the JAX engine's
 ``jax.jit(self._measurement_step)``): the front replayed every step, the
-back when both flags fit (tiers 0/0), else eagerly; on the CPU ``_step``
-is ``_measurement_step``.  Every service that replaces the particle state
+back from the graph of its ``fits`` outcome where that remainder reads
+nothing on the host (tiers 0/0, trilinear sampling, the small counts
+without grouping, the DDA beam), else eagerly; on the CPU ``_step`` is
+``_measurement_step``.  Every service that replaces the particle state
 or the map drops the graphs (``drop_step_graphs``).
 
 The fleet and the splits over ``torch.distributed`` are ``parallel/``;
 the step gains two switches for them.  ``spmd_safe`` (the batched fleet,
 ``torch.func.vmap`` over the step) reads nothing on the host: the
-likelihood takes the plain gather (tier 2) without grouping, the beam
-marches a fixed trip count.  ``shard`` (the particle split) runs the step
+likelihood samples the whole field (tier 2) without grouping, the beam
+marches every ray (kernels M4 and M2 or M3 on the card, their vmap rules
+folding the robots into the queries and rays; on the CPU a fixed trip
+count).  ``shard`` (the particle split) runs the step
 on this rank's slice of the capacity: the models on the slice with the
 rank's own tiers, the filter's boundaries (weight normalization, entropy,
 moments, covariance, the resampling CDF, the best particle) across every
@@ -77,6 +82,7 @@ from mcl_3dl_tpu_torch.cloud_accum import (CloudAccumulation,
 from mcl_3dl_tpu_torch.config import Params
 from mcl_3dl_tpu_torch.io.pcd import write_pcd
 from mcl_3dl_tpu_torch.map import correlative as mc
+from mcl_3dl_tpu_torch.map.distance_field import sample_field
 from mcl_3dl_tpu_torch.map.map_data import MapData
 from mcl_3dl_tpu_torch.map.voxel import voxel_downsample
 from mcl_3dl_tpu_torch.math import f32
@@ -240,6 +246,15 @@ def dda_num_steps(params: Params) -> int:
     bp = params.beam
     return int(math.ceil((bp.clip_far + bp.hit_range)
                          / (bp.dda_grid_size * 0.5))) + 2
+
+
+def sphere_num_steps(params: Params) -> int:
+    """Probe bound of the tier-2 sphere trace: ``max_sphere_steps``, at
+    most the fixed-step probes over ``clip_far + hit_range``."""
+    bp = params.beam
+    return min(bp.max_sphere_steps,
+               int(math.ceil((bp.clip_far + bp.hit_range)
+                             / params.map_grid_min)) + 2)
 
 
 class MCL3DL:
@@ -858,7 +873,7 @@ class MCL3DL:
         a ``global_mode`` step samples nearest, its layout built inside
         the likelihood model; the DDA raycast marches ``occ`` (default the
         map's).  ``spmd_safe`` reads nothing on the host: no grouping, the
-        plain gather, a fixed-trip march (tiers 2/2).  ``grouped``: the
+        whole field sampled, every ray marched (tiers 2/2).  ``grouped``: the
         result of ``group`` on these arguments, when the caller has it."""
         p = self.params
         lp, bp = p.likelihood, p.beam
@@ -896,12 +911,8 @@ class MCL3DL:
                 num_steps=beam_num_steps(p), grouped=grouped_beam, **kw)
             tier_beam = 0
         else:
-            if bp.use_raycast_using_dda:
-                num_steps = dda_num_steps(p)
-            else:
-                num_steps = min(bp.max_sphere_steps,
-                                int(math.ceil((bp.clip_far + bp.hit_range)
-                                              / p.map_grid_min)) + 2)
+            num_steps = (dda_num_steps(p) if bp.use_raycast_using_dda
+                         else sphere_num_steps(p))
             lik_b, _ = beam_measure(
                 df_beam, pos, rot, beam_pts, beam_labels, beam_valid, origins,
                 num_steps=num_steps, use_dda=bp.use_raycast_using_dda,
@@ -1318,7 +1329,7 @@ class MCL3DL:
         q = mq.rotate(torch.as_tensor(np.asarray(rot, np.float32), **f),
                       torch.as_tensor(np.asarray(points_base, np.float32), **f)
                       ) + torch.as_tensor(np.asarray(pos, np.float32), **f)
-        d = self.map.df.sample_trilinear(q)
+        d = sample_field(self.map.df, q, trilinear=True)
         unmatched = d > f32(p.unmatch_output_dist)
         matched = ~unmatched & (d < f32(p.match_output_dist))
         return matched.cpu().numpy(), unmatched.cpu().numpy()

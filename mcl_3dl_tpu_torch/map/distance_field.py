@@ -16,6 +16,8 @@ Two samplers: nearest cell (one gather a query) and trilinear (the
 eight corners of the cell cube around the query).  With the corner pack
 (``packed``, 8 bytes a cell: the 2x2x2 cube above each cell) a trilinear
 query is one row gather of two 32-bit words instead of eight gathers.
+``sample_field`` runs either as kernel M4 (``csrc/tier2.cu``) on the
+card; the ``sample_*`` methods are its plain versions.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from mcl_3dl_tpu_torch.map.native import build_distance_field_native
 from mcl_3dl_tpu_torch.math import device_constant, f32
+from mcl_3dl_tpu_torch.ops import build
 
 ZW = 128        # z lanes of one local-table row (ops/grouped.py)
 
@@ -107,6 +110,28 @@ class DistanceField:
                     v = torch.where(ok, code.to(torch.float32) * scale, trunc)
                     out = out + w[0][dx] * w[1][dy] * w[2][dz] * v
         return out
+
+
+def sample_field(df: DistanceField, q, trilinear: bool):
+    """Kernel M4 (``csrc/tier2.cu``): the field at queries ``q`` [..., 3],
+    ``[...]`` f32, bit-equal to ``df.sample_trilinear(q)`` (through the
+    corner pack where the field has one) or ``df.sample_nearest(q)``, its
+    plain versions, which it takes for CPU tensors.  One thread a query.
+    It replaces no Pallas kernel: on the TPU the tier-2 likelihood's
+    gather is what XLA fuses (mcl_3dl_tpu/models/likelihood.py:170-187)."""
+    if not q.is_cuda:
+        return df.sample_trilinear(q) if trilinear else df.sample_nearest(q)
+    trunc = float(df.trunc)
+    wx, wy, wz = (f32(w) for w in df.weights)
+    out = build.op("sample_field")(
+        q.reshape(-1, 3).contiguous(), df.field,
+        df.packed if trilinear else None, df.origin, wx, wy, wz,
+        f32(df.cell), f32(trunc / 255.0), f32(trunc), bool(trilinear))
+    sample_field.launches += 1
+    return out.reshape(q.shape[:-1])
+
+
+sample_field.launches = 0
 
 
 def gather_codes(field, iq):

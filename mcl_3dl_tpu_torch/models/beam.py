@@ -14,8 +14,11 @@ layout shared with the likelihood model and rescores envelope outliers
 with the exact fixed march (``march_fixed``: kernel M1,
 ``csrc/beam_march.cu``, on the card; ``raycast_fixed`` is its plain
 version); tier 2 (``beam_measure``) is the sphere
-trace ``raycast_df`` or, with ``use_dda``, the half-cell march
-``raycast_occ``; each checks its loop exit on the host every probe.
+trace or, with ``use_dda``, the half-cell march over the occupancy grid:
+kernels M2 (``march_sphere``) and M3 (``march_dda``, ``csrc/tier2.cu``)
+on the card, each ray marched to its own exit with no host read; their
+plain versions ``raycast_df`` and ``raycast_occ`` check the loop's exit
+on the host every probe.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from mcl_3dl_tpu_torch.map.distance_field import DistanceField
 from mcl_3dl_tpu_torch.map.occupancy import OccupancyGrid
-from mcl_3dl_tpu_torch.math import f32
+from mcl_3dl_tpu_torch.math import device_constant, f32
 from mcl_3dl_tpu_torch.math import quat as mq
 from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
@@ -49,41 +52,42 @@ def _ray(begin, end):
     return length, seg / torch.clamp(length, min=1e-12)[..., None]
 
 
-def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
-               map_grid_max: float, hit_tolerance: float, num_steps: int,
-               early_exit: bool = True):
-    """Sphere-traced kd-tree-style raycast against the distance field:
-    ``(collision, collision_pos [..., 3], sin_angle)``.
-
-    The field value bounds the weighted distance to the nearest map
-    point, so stepping ``(d - radius) / ||W u||`` (at least ``grid_min``)
-    can never skip a collision; a probe with ``d <= radius`` is a
-    collision as in the reference's fixed march.  The loop stops when
-    every ray has hit or passed ``floor((|ray| + tol) / grid) * grid``,
-    checked on the host each iteration, or after ``num_steps``; with
-    ``early_exit=False`` it always runs ``num_steps`` (no host read, the
-    same result: a finished ray's iterations change nothing).  The
-    incidence estimate is the field drop over the entry -> hit span.
-    """
-    radius = f32(2.0 ** 0.5 * map_grid_max / 2.0)
+def _sphere_setup(df: DistanceField, begin, end, map_grid_min,
+                  hit_tolerance):
+    """The sphere trace's set-up: ``(direction, max_t, wu)``, the unit
+    ray, its range ``floor((|ray| + tol) / grid) * grid`` and ``|W u|``."""
     length, direction = _ray(begin, end)
     max_t = torch.floor(_cdiv(length + f32(hit_tolerance), map_grid_min)) \
         * f32(map_grid_min)
+    w_vec = device_constant(df.weights, torch.float32, begin.device)
+    return direction, max_t, torch.linalg.vector_norm(direction * w_vec,
+                                                      dim=-1)
+
+
+def _sphere_loop(df: DistanceField, begin, direction, max_t, wu,
+                 map_grid_min, map_grid_max, num_steps, early_exit):
+    """The sphere trace's loop over every ray at once: ``(carry, probes)``,
+    ``carry = (found, cpos, d0_hit, t_entry, d_entry)``; with
+    ``early_exit`` it stops once no ray is live (not hit, ``t < max_t``),
+    read on the host each iteration, and ``probes`` counts the live rays'
+    probes (else ``None``)."""
+    radius = f32(2.0 ** 0.5 * map_grid_max / 2.0)
     shape = begin.shape[:-1]
     dev = begin.device
-    w_vec = torch.tensor(df.weights, dtype=torch.float32, device=dev)
-    wu = torch.linalg.vector_norm(direction * w_vec, dim=-1)
     d_entry_thr = f32(float(df.trunc) * 0.99)
-
     found = torch.zeros(shape, dtype=torch.bool, device=dev)
     t = torch.full(shape, f32(map_grid_min), device=dev)
     cpos = torch.zeros(shape + (3,), device=dev)
     d0_hit = torch.zeros(shape, device=dev)
     t_entry = torch.full(shape, -1.0, device=dev)
     d_entry = torch.full(shape, f32(df.trunc), device=dev)
-    s = 0
-    while s < num_steps and (not early_exit
-                             or bool(torch.any(~found & (t < max_t)))):
+    probes = 0 if early_exit else None
+    for _ in range(num_steps):
+        if early_exit:
+            live = int(torch.count_nonzero(~found & (t < max_t)))
+            if live == 0:
+                break
+            probes += live
         pos = begin + direction * t[..., None]
         d = df.sample_nearest(pos)
         active = (t < max_t) & ~found
@@ -97,8 +101,13 @@ def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
                               min=f32(map_grid_min))
         t = torch.where(active & ~hit_now, t + advance, t)
         found = found | hit_now
-        s += 1
+    return (found, cpos, d0_hit, t_entry, d_entry), probes
 
+
+def _sphere_result(begin, direction, map_grid_min, found, cpos, d0_hit,
+                   t_entry, d_entry):
+    """The incidence epilogue: ``(found, cpos, sin_angle)``, the field drop
+    over the entry -> hit span."""
     span = torch.clamp(torch.linalg.vector_norm(
         cpos - (begin + direction * t_entry[..., None]), dim=-1), min=1e-6)
     sin_ang = torch.where(
@@ -107,13 +116,140 @@ def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
     return found, cpos, torch.where(found, sin_ang, 0.0)
 
 
+def raycast_df(df: DistanceField, begin, end, map_grid_min: float,
+               map_grid_max: float, hit_tolerance: float, num_steps: int,
+               early_exit: bool = True):
+    """Sphere-traced kd-tree-style raycast against the distance field:
+    ``(collision, collision_pos [..., 3], sin_angle)``; the plain version
+    of kernel M2 (``march_sphere``).
+
+    The field value bounds the weighted distance to the nearest map
+    point, so stepping ``(d - radius) / ||W u||`` (at least ``grid_min``)
+    can never skip a collision; a probe with ``d <= radius`` is a
+    collision as in the reference's fixed march.  The loop stops when
+    every ray has hit or passed ``floor((|ray| + tol) / grid) * grid``,
+    checked on the host each iteration, or after ``num_steps``; with
+    ``early_exit=False`` it always runs ``num_steps`` (no host read, the
+    same result: a finished ray's iterations change nothing).  The
+    incidence estimate is the field drop over the entry -> hit span.
+    """
+    direction, max_t, wu = _sphere_setup(df, begin, end, map_grid_min,
+                                         hit_tolerance)
+    carry, _ = _sphere_loop(df, begin, direction, max_t, wu, map_grid_min,
+                            map_grid_max, num_steps, early_exit)
+    return _sphere_result(begin, direction, map_grid_min, *carry)
+
+
+def march_sphere(df: DistanceField, begin, end, map_grid_min: float,
+                 map_grid_max: float, hit_tolerance: float, num_steps: int,
+                 early_exit: bool = True):
+    """Kernel M2 (``csrc/tier2.cu``): ``raycast_df``'s ``(found,
+    collision_pos [..., 3], sin_angle)`` for CUDA tensors, bit for bit,
+    with or without ``early_exit`` (each thread marches its ray to its own
+    exit); ``raycast_df`` itself, its plain version, for CPU tensors.  The
+    set-up (``_sphere_setup``) and the incidence epilogue stay torch; the
+    kernel returns the loop's carry.  It replaces no Pallas kernel: on the
+    TPU the march is XLA's ``lax.while_loop``
+    (mcl_3dl_tpu/models/beam.py:132)."""
+    if not begin.is_cuda:
+        return raycast_df(df, begin, end, map_grid_min, map_grid_max,
+                          hit_tolerance, num_steps, early_exit)
+    shape = begin.shape[:-1]
+    direction, max_t, wu = _sphere_setup(df, begin, end, map_grid_min,
+                                         hit_tolerance)
+    trunc = float(df.trunc)
+    wx, wy, wz = (f32(w) for w in df.weights)
+    carry = build.op("march_sphere")(
+        begin.reshape(-1, 3).contiguous(),
+        direction.reshape(-1, 3).contiguous(), max_t.reshape(-1).contiguous(),
+        wu.reshape(-1).contiguous(), df.field, df.origin, num_steps, wx, wy,
+        wz, f32(df.cell), f32(trunc / 255.0), f32(trunc), f32(map_grid_min),
+        f32(2.0 ** 0.5 * map_grid_max / 2.0), f32(trunc * 0.99))
+    march_sphere.launches += 1
+    found, cpos, d0_hit, t_entry, d_entry = carry
+    return _sphere_result(
+        begin, direction, map_grid_min, found.reshape(shape),
+        cpos.reshape(shape + (3,)), d0_hit.reshape(shape),
+        t_entry.reshape(shape), d_entry.reshape(shape))
+
+
+march_sphere.launches = 0
+march_sphere.plain = raycast_df
+
+
+def _sum3(x):
+    """``x[..., 0] + x[..., 1] + x[..., 2]``: a sum over a last axis of 3 in
+    a stated order (kernel M3 adds the same way)."""
+    return x[..., 0] + x[..., 1] + x[..., 2]
+
+
+def _dda_setup(occ: OccupancyGrid, begin, end, hit_tolerance):
+    """The DDA march's set-up: ``(direction, max_t, begin_inside,
+    begin_voxel)``."""
+    length, direction = _ray(begin, end)
+    dims = device_constant(occ.shape, torch.float32, begin.device)
+    dims_hi = occ.origin + dims * f32(occ.cell)
+    begin_inside = torch.all((begin >= occ.origin) & (begin <= dims_hi),
+                             dim=-1)
+    return (direction, length + f32(hit_tolerance), begin_inside,
+            occ.voxel(begin))
+
+
+def _dda_loop(occ: OccupancyGrid, begin, direction, max_t, begin_inside,
+              begin_voxel, filter_label_max, num_steps, ray_angle_half,
+              min_dist_thr_sq, early_exit):
+    """The DDA march's loop over every ray at once: ``((found, cpos),
+    probes)``; with ``early_exit`` it stops once no ray is live (not hit,
+    inside the map, ``t < max_t``), read on the host each probe, and
+    ``probes`` counts the live rays' probes (else ``None``)."""
+    step = f32(occ.cell * 0.5)
+    refine = ray_angle_half > 0.0 or min_dist_thr_sq > 0.0
+    shape = begin.shape[:-1]
+    found = torch.zeros(shape, dtype=torch.bool, device=begin.device)
+    cpos = torch.zeros(shape + (3,), device=begin.device)
+    probes = 0 if early_exit else None
+    for s in range(num_steps):
+        t = f32((s + 1) * step)      # one f32 product, as in JAX
+        if early_exit:
+            live = int(torch.count_nonzero(~found & (t < max_t)
+                                           & begin_inside))
+            if live == 0:
+                break
+            probes += live
+        pos = begin + direction * t
+        occ_hit, label, rep_pos = occ.lookup(pos)        # rep_pos [..., R, 3]
+        same_as_begin = torch.all(occ.voxel(pos) == begin_voxel, dim=-1)
+        if refine:
+            rel = rep_pos - begin[..., None, :]
+            foot = torch.abs(_sum3(rel * direction[..., None, :]))
+            thr_sq = torch.clamp((f32(ray_angle_half) * foot) ** 2,
+                                 min=f32(min_dist_thr_sq))
+            pass_r = _sum3(rel * rel) - foot * foot < thr_sq
+            near_ray = torch.any(pass_r, dim=-1)
+            # the first passing representative (argmax returns the first
+            # maximum; no bool argmax on CUDA)
+            first = torch.argmax(pass_r.to(torch.uint8), dim=-1)
+            point_pos = torch.gather(
+                rep_pos, -2, first[..., None, None].expand(
+                    first.shape + (1, 3)))[..., 0, :]
+        else:
+            near_ray = True
+            point_pos = rep_pos[..., 0, :]
+        blocked = (occ_hit & near_ray & (label <= int(filter_label_max))
+                   & ~same_as_begin & (t < max_t) & begin_inside & ~found)
+        cpos = torch.where(blocked[..., None], point_pos, cpos)
+        found = found | blocked
+    return (found, cpos), probes
+
+
 def raycast_occ(occ: OccupancyGrid, begin, end, hit_tolerance: float,
                 filter_label_max: int, num_steps: int,
                 ray_angle_half: float = 0.0, min_dist_thr_sq: float = 0.0,
                 early_exit: bool = True):
     """DDA-style raycast against the occupancy grid: ``(collision,
     collision_pos [..., 3], sin_angle)``, ``sin_angle`` 1 on a hit (the
-    reference hardcodes it, raycast_using_dda.h:151-152).
+    reference hardcodes it, raycast_using_dda.h:151-152); the plain
+    version of kernel M3 (``march_dda``).
 
     Probes every half cell from ``t = step`` (a superset of the exact
     voxel walk, raycast_using_dda.h:106-159) until ``|ray| +
@@ -129,47 +265,47 @@ def raycast_occ(occ: OccupancyGrid, begin, end, hit_tolerance: float,
     has hit or passed its range, checked on the host each probe, or
     after ``num_steps`` (always, with ``early_exit=False``).
     """
-    step = f32(occ.cell * 0.5)
-    length, direction = _ray(begin, end)
-    max_t = length + f32(hit_tolerance)
-    dev = begin.device
-    dims_hi = occ.origin + torch.tensor(occ.shape, dtype=torch.float32,
-                                        device=dev) * f32(occ.cell)
-    begin_inside = torch.all((begin >= occ.origin) & (begin <= dims_hi), dim=-1)
-    begin_voxel = occ.voxel(begin)
-    refine = ray_angle_half > 0.0 or min_dist_thr_sq > 0.0
-    shape = begin.shape[:-1]
-    found = torch.zeros(shape, dtype=torch.bool, device=dev)
-    cpos = torch.zeros(shape + (3,), device=dev)
-    s = 0
-    while s < num_steps and (not early_exit or bool(
-            torch.any(~found & (f32((s + 1) * step) < max_t)))):
-        t = f32((s + 1) * step)      # one f32 product, as in JAX
-        pos = begin + direction * t
-        occ_hit, label, rep_pos = occ.lookup(pos)        # rep_pos [..., R, 3]
-        same_as_begin = torch.all(occ.voxel(pos) == begin_voxel, dim=-1)
-        if refine:
-            rel = rep_pos - begin[..., None, :]
-            foot = torch.abs(torch.sum(rel * direction[..., None, :], dim=-1))
-            thr_sq = torch.clamp((f32(ray_angle_half) * foot) ** 2,
-                                 min=f32(min_dist_thr_sq))
-            pass_r = torch.sum(rel * rel, dim=-1) - foot * foot < thr_sq
-            near_ray = torch.any(pass_r, dim=-1)
-            # the first passing representative (argmax returns the first
-            # maximum; no bool argmax on CUDA)
-            first = torch.argmax(pass_r.to(torch.uint8), dim=-1)
-            point_pos = torch.gather(
-                rep_pos, -2, first[..., None, None].expand(
-                    first.shape + (1, 3)))[..., 0, :]
-        else:
-            near_ray = True
-            point_pos = rep_pos[..., 0, :]
-        blocked = (occ_hit & near_ray & (label <= int(filter_label_max))
-                   & ~same_as_begin & (t < max_t) & begin_inside & ~found)
-        cpos = torch.where(blocked[..., None], point_pos, cpos)
-        found = found | blocked
-        s += 1
+    direction, max_t, begin_inside, begin_voxel = _dda_setup(
+        occ, begin, end, hit_tolerance)
+    (found, cpos), _ = _dda_loop(
+        occ, begin, direction, max_t, begin_inside, begin_voxel,
+        filter_label_max, num_steps, ray_angle_half, min_dist_thr_sq,
+        early_exit)
     return found, cpos, torch.where(found, 1.0, 0.0)
+
+
+def march_dda(occ: OccupancyGrid, begin, end, hit_tolerance: float,
+              filter_label_max: int, num_steps: int,
+              ray_angle_half: float = 0.0, min_dist_thr_sq: float = 0.0,
+              early_exit: bool = True):
+    """Kernel M3 (``csrc/tier2.cu``): ``raycast_occ``'s ``(found,
+    collision_pos [..., 3], sin_angle)`` for CUDA tensors, bit for bit,
+    with or without ``early_exit``; ``raycast_occ`` itself, its plain
+    version, for CPU tensors.  The set-up (``_dda_setup``) stays torch.
+    It replaces no Pallas kernel: on the TPU the march is XLA's
+    ``lax.while_loop`` (mcl_3dl_tpu/models/beam.py:259)."""
+    if not begin.is_cuda:
+        return raycast_occ(occ, begin, end, hit_tolerance, filter_label_max,
+                           num_steps, ray_angle_half, min_dist_thr_sq,
+                           early_exit)
+    shape = begin.shape[:-1]
+    direction, max_t, begin_inside, begin_voxel = _dda_setup(
+        occ, begin, end, hit_tolerance)
+    found, cpos = build.op("march_dda")(
+        begin.reshape(-1, 3).contiguous(),
+        direction.reshape(-1, 3).contiguous(), max_t.reshape(-1).contiguous(),
+        begin_inside.reshape(-1).contiguous(),
+        begin_voxel.reshape(-1, 3).contiguous(), occ.occupied, occ.min_label,
+        occ.rep_point, occ.origin, num_steps, f32(occ.cell * 0.5),
+        f32(occ.cell), int(filter_label_max), f32(ray_angle_half),
+        f32(min_dist_thr_sq), ray_angle_half > 0.0 or min_dist_thr_sq > 0.0)
+    march_dda.launches += 1
+    found = found.reshape(shape)
+    return found, cpos.reshape(shape + (3,)), torch.where(found, 1.0, 0.0)
+
+
+march_dda.launches = 0
+march_dda.plain = raycast_occ
 
 
 def raycast_fixed(df: DistanceField, begin, end, map_grid_min: float,
@@ -359,21 +495,23 @@ def beam_measure(df_beam: DistanceField, pos, rot, points, origin_idx,
                  occ: OccupancyGrid = None, filter_label_max=0xFFFFFFFF,
                  ray_angle_half=0.0, min_dist_thr_sq=0.0, early_exit=True):
     """Tier 2: ``(likelihood [N], status [N, B])`` on every (particle,
-    beam) through the sphere trace ``raycast_df``, or with ``use_dda``
-    through ``raycast_occ`` over ``occ`` (which reads the label and
-    perpendicular-distance parameters).  ``early_exit=False`` marches a
-    fixed trip count with no host read (the batched fleet)."""
+    beam) through the sphere trace ``march_sphere``, or with ``use_dda``
+    through ``march_dda`` over ``occ`` (which reads the label and
+    perpendicular-distance parameters).  On the card both are kernels
+    that read nothing on the host; on the CPU ``early_exit=False`` marches
+    a fixed trip count with no host read (the batched fleet), the same
+    result."""
     rmat = mq.rotation_matrix(mq.normalize(rot))
     ends = torch.einsum("bj,nij->nbi", points, rmat) + pos[:, None, :]
     sensor_org = origins[origin_idx]
     begins = torch.einsum("bj,nij->nbi", sensor_org, rmat) + pos[:, None, :]
     if use_dda:
-        collision, cpos, sin_ang = raycast_occ(
+        collision, cpos, sin_ang = march_dda(
             occ, begins, ends, hit_range, filter_label_max, num_steps,
             ray_angle_half=ray_angle_half, min_dist_thr_sq=min_dist_thr_sq,
             early_exit=early_exit)
     else:
-        collision, cpos, sin_ang = raycast_df(
+        collision, cpos, sin_ang = march_sphere(
             df_beam, begins, ends, map_grid_min, map_grid_max, hit_range,
             num_steps, early_exit)
     dist_sq = torch.sum((ends - cpos) ** 2, dim=-1)

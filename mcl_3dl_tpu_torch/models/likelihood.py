@@ -16,15 +16,20 @@ package reports it:
 1. per-point 32x32x16 box tables, kernel K3 (ops/local_gather.py);
 2. the plain gather.
 
-Trilinear sampling (``trilinear=True``) always runs the plain gather of
-``DistanceField.sample_trilinear`` and reports tier 2.
+Trilinear sampling (``trilinear=True``) always samples at tier 2.  The
+tier-2 branch that needs no box check (``box_path`` false: trilinear
+sampling, a capacity that is no multiple of 128, the batched fleet)
+samples the field through kernel M4 (``sample_field``) on the card and
+reads nothing on the host; the box check (tiers 1 and 2 after a grouping
+that does not fit) reads its flags on the host.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mcl_3dl_tpu_torch.map.distance_field import DistanceField, gather_codes
+from mcl_3dl_tpu_torch.map.distance_field import (DistanceField, gather_codes,
+                                                  sample_field)
 from mcl_3dl_tpu_torch.math import f32
 from mcl_3dl_tpu_torch.math import quat as mq
 from mcl_3dl_tpu_torch.ops import grouped as og
@@ -151,33 +156,44 @@ def _gather_score(df, iq, valid, match_dist_min, match_dist_flat,
                             match_dist_flat, match_weight, dim=0)
 
 
+def box_path(n: int, trunc: float, match_dist_min: float, *,
+             trilinear: bool = False, local_kernel: bool = True) -> bool:
+    """Whether ``likelihood_measure`` at capacity ``n`` may take the box
+    path (tiers 0 and 1 and their fallback), whose choice reads flags on
+    the host: nearest sampling with the local kernel on, ``n`` a whole
+    number of 128-slot rows, and a truncation past ``match_dist_min``.
+    Otherwise the step samples the whole field at tier 2 with no host
+    read (``step_graph`` decides its graphs by the same rule)."""
+    return (local_kernel and not trilinear and n % 128 == 0 and n >= 128
+            and float(trunc) > float(match_dist_min))
+
+
 def likelihood_measure(df: DistanceField, pos, rot, points, valid,
                        match_dist_min: float, match_dist_flat: float,
                        match_weight: float, *, active=None, rmat=None,
                        grouped=None, trilinear=False, local_kernel=True):
     """``(likelihood [N], quality [N], tier)`` with nearest-cell sampling,
-    or with ``trilinear`` the interpolated field through the plain gather
-    (tier 2).
+    or with ``trilinear`` the interpolated field (tier 2, kernel M4 on the
+    card).
 
     ``grouped``: ``(stats, layout, lo, fits)`` prepared by the engine, which
     shares one sorted layout with the beam model; ``fits`` is a host bool
     and ``layout`` is ``None`` when it is False.  Built here when omitted
     and eligible (N a tile multiple).  ``active`` masks inactive capacity
-    slots out of the bin envelopes.  ``local_kernel=False`` takes the plain
-    gather with no host read (tier 2; the batched fleet).
+    slots out of the bin envelopes.  ``local_kernel=False`` samples the
+    whole field with no host read (tier 2; the batched fleet).
     """
     n = pos.shape[0]
     kw = dict(match_dist_min=match_dist_min, match_dist_flat=match_dist_flat,
               match_weight=match_weight)
-    use_local = (local_kernel and not trilinear and n % 128 == 0 and n >= 128
-                 and float(df.trunc) > float(match_dist_min))
+    use_local = box_path(n, df.trunc, match_dist_min, trilinear=trilinear,
+                         local_kernel=local_kernel)
     if rmat is None:
         rmat = mq.rotation_matrix(mq.normalize(rot))
 
     if not use_local:
         transformed = torch.einsum("kj,nij->nki", points, rmat) + pos[:, None, :]
-        d = (df.sample_trilinear(transformed) if trilinear
-             else df.sample_nearest(transformed))                 # [N, K]
+        d = sample_field(df, transformed, trilinear)              # [N, K]
         score, mcount = _score_from_dist(d, valid[None, :], dim=-1, **kw)
         return (*_finalize(score, mcount, valid), TIER_GATHER)
 

@@ -12,6 +12,10 @@ loaded into one process.  The library lives under
 the sources, the flags and torch's version, and is built at first use.
 It needs ``nvcc``, a host C++ compiler and a CUDA build of torch; without
 them, or when the library does not load, ``build``/``library`` raise.
+Operators that are elementwise over the rays or queries of their leading
+arguments (``VMAP_FOLDS``) get a vmap rule at their first lookup
+(``op``, ``fold_rule``): under ``torch.func.vmap`` the robots axis is
+folded into those rays or queries and the kernel launches once.
 
 ``build_map`` builds the host map compiler (``csrc/map_builder.cpp``, a
 plain C library loaded with ctypes by ``map/native.py``) with the host
@@ -40,9 +44,12 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("grouped.cu", "local_gather.cu", "beam_march.cu",
+SOURCES = ("grouped.cu", "local_gather.cu", "beam_march.cu", "tier2.cu",
            "gather_bench.cu")
+HEADERS = ("field.cuh",)
 BINDING = "ops.cpp"
+# operator -> how many leading tensor arguments hold its rays or queries
+VMAP_FOLDS = {"sample_field": 1, "march_sphere": 4, "march_dda": 5}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 # the standard torch's own extension builder compiles its headers with
@@ -86,7 +93,7 @@ def _abi() -> int:
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + HOST_FLAGS + TORCH_LIBS).encode())
     h.update(f"torch {torch.__version__} abi {_abi()}".encode())
-    for name in SOURCES + (BINDING,):
+    for name in SOURCES + HEADERS + (BINDING,):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -186,12 +193,40 @@ def library():
     return _lib
 
 
+def fold_rule(get_op, n_folded: int):
+    """A ``torch.library.register_vmap`` rule for an operator that is
+    elementwise over the leading dimension of its first ``n_folded``
+    arguments (its rays or queries): each is moved to ``[B, R, ...]`` (an
+    unbatched one expanded), folded to ``[B * R, ...]``, the operator
+    (``get_op()``) is called once, and every output unfolded to ``[B, R,
+    ...]``.  The other arguments (the map) must not be batched."""
+    def rule(info, in_dims, *args):
+        if any(d is not None for d in in_dims[n_folded:]):
+            raise ValueError("vmap: only the rays or queries may be batched")
+        b = info.batch_size
+        folded = []
+        for x, d in zip(args[:n_folded], in_dims[:n_folded]):
+            x = x.movedim(d, 0) if d is not None else x.expand(b, *x.shape)
+            folded.append(x.flatten(0, 1).contiguous())
+        out = get_op()(*folded, *args[n_folded:])
+        if isinstance(out, torch.Tensor):
+            return out.unflatten(0, (b, -1)), 0
+        return tuple(o.unflatten(0, (b, -1)) for o in out), (0,) * len(out)
+    return rule
+
+
 def op(name: str):
     """The ``OpOverload`` of operator ``name`` (kept, so a call pays no
-    overload resolution)."""
+    overload resolution); at its first lookup an operator of
+    ``VMAP_FOLDS`` gets its vmap rule."""
     fn = _ops.get(name)
     if fn is None:
-        fn = _ops[name] = getattr(library(), name).default
+        fn = getattr(library(), name).default
+        if name in VMAP_FOLDS:
+            torch.library.register_vmap(
+                f"{namespace()}::{name}", fold_rule(lambda: fn,
+                                                    VMAP_FOLDS[name]))
+        _ops[name] = fn
     return fn
 
 

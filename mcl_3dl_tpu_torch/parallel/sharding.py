@@ -17,9 +17,11 @@ replicated; every rank holds its own slice of the particle state.
   K1/K2 and each robot's own host tier read.
 * ``fleet_filter_step``: the batched ``spmd_safe`` fleet,
   ``torch.func.vmap`` of the single-robot step over a leading robots
-  axis: no host read inside, so the likelihood runs its plain gather
-  (tier 2) and the beam a fixed-trip march, on the whole fleet's
-  ``[R * P, K]`` working set at once.
+  axis: no host read inside, so the likelihood samples the whole field
+  (tier 2, kernel M4) and the beam marches every ray (M2, or M3 with the
+  DDA beam), each kernel launched once for the fleet through its vmap
+  rule (``ops/build.py``), on the whole fleet's ``[R * P, K]`` working
+  set at once.
 
 The fleet steps take the single-robot step's arguments with a leading
 robots axis: ``step(state_b, df, df_beam, cloud [R, P, 3], cloud_label
@@ -310,8 +312,8 @@ def fleet_filter_step_grouped(engine, mesh: Optional[Mesh] = None):
 def fleet_filter_step(engine, mesh: Optional[Mesh] = None):
     """The batched fleet step: ``torch.func.vmap`` of the single-robot
     ``spmd_safe`` step over the leading robots axis, robots split over
-    the mesh's robots axis.  No host read inside: tiers 2/2 (the plain
-    gather and a fixed-trip march) for every robot, each robot's result
+    the mesh's robots axis.  No host read inside: tiers 2/2 (the whole
+    field sampled, every ray marched) for every robot, each robot's result
     the single-robot ``spmd_safe`` step's up to the order of the batched
     reductions.  It holds the whole fleet's measurement working set at
     once.  Raises on a particles axis other than 1 (one robot's particle

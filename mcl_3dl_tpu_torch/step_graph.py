@@ -1,35 +1,43 @@
-"""The steady measurement step replayed from CUDA graphs: the port's
+"""The measurement step replayed from CUDA graphs: the port's
 counterpart of the JAX engine's ``self._step = jax.jit(
 self._measurement_step)`` (mcl_3dl_tpu/engine.py:168).
 
 ``run`` has ``MCL3DL._measurement_step``'s signature and outputs.  On a
 CUDA device, for a step it can graph (``graphable``: not global mode, not
-batched or split, the uniform sampler, nearest sampling at a capacity of
-whole 1024-slot tiles, and a beam model that is off or grouped), it keeps
-one ``StepGraph`` a key (``step_key``: what JAX's jit re-traces on —
-capacity, cloud bucket, number of origins, both models' slot counts,
-whether the beam runs, the thresholds and the map) in the engine's
-``_graphs``.  A step is split at its one host read, the ``fits`` flags
-(the ``lax.cond`` of the JAX step):
+batched or split, the uniform sampler), it keeps one ``StepGraph`` a key
+(``step_key``: what JAX's jit re-traces on — capacity, cloud bucket,
+number of origins, both models' slot counts, whether the beam runs, the
+thresholds and the map) in the engine's ``_graphs``.  A step is split at
+its one host read, the ``fits`` flags (the ``lax.cond`` of the JAX step):
 
 * graph A, ``MCL3DL._step_front``: clip, sampling, the grouping's
   statistics, boxes and flags;
-* graph B, ``MCL3DL._step_back`` with both flags true: the layout, the
-  tables, K1 and K2, both overflow rescores (M1 among them), the weight
-  update and the filter's tail.
+* one graph B a ``fits`` outcome (the tuple read; ``()`` where the step
+  has no grouping), ``MCL3DL._step_back`` on it: the layout, both models
+  at the outcome's tiers, the weight update and the filter's tail.
+
+A B is kept only for an outcome whose remainder reads nothing on the host
+(``back_graphable``): the likelihood at tier 0, or not eligible for the
+box path (``likelihood.box_path``: trilinear sampling, a capacity of no
+whole 128-slot rows), whose tier-1 check reads flags; the beam at any
+tier (K2 and M1 at tier 0, M2 or M3 at tier 2, all kernels).  So the
+steady step at tiers 0/0, the trilinear step (M4 with K2, or with M2),
+the small-count step without grouping (M4 + M2) and the DDA step (M3)
+replay whole; a remainder that may reach the box check (nearest sampling
+when tier 0 does not fit at a capacity of whole 128-slot rows) runs
+eagerly on A's outputs.
 
 The first step at a key runs eagerly (the warm-up: kernels built, device
 constants made, ``math.device_constant``); later steps copy their inputs
-into the graphs' static buffers, replay A, read the flags, and replay B
-where both fit, else run ``_step_back`` eagerly on A's outputs (startup,
-kidnap, tiers 1 and 2).  B is captured at the first step at the key whose
-flags both fit after one such eager remainder; both graphs share one
+into the graphs' static buffers, replay A, read the flags, and replay the
+outcome's B, captured at the first step with that outcome after one eager
+remainder with it (its own warm-up).  All graphs of a key share one
 memory pool, and a step's outputs are copied out of the graphs' buffers
-before the next replay.  The
-draws are made eagerly by the engine's generator before A replays (the
-same calls the eager step makes), so a graphed and an eager step on the
-same draws see the same bits.  A capture error raises; nothing falls back
-to the eager step on the card.
+before the next replay.  The draws are made eagerly by the engine's
+generator before A replays (the same calls the eager step makes), so a
+graphed and an eager step on the same draws see the same bits.  A capture
+error raises (a host read inside a capture among them); nothing falls
+back to the eager step on the card.
 
 The kernels' wrappers do not run on a replay, so each capture records how
 many times each counted kernel (``KERNELS``) launched inside it and every
@@ -44,14 +52,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mcl_3dl_tpu_torch.models.beam import march_fixed
+from mcl_3dl_tpu_torch.map.distance_field import sample_field
+from mcl_3dl_tpu_torch.models.beam import march_dda, march_fixed, march_sphere
+from mcl_3dl_tpu_torch.models.likelihood import box_path
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops import local_gather as olg
 
-# the launch-counted kernel wrappers: K1, K2, K3, M1
+# the launch-counted kernel wrappers: K1, K2, K3, M1-M4
 KERNELS = (og.grouped_like_score, og.grouped_beam_pen, olg.local_score,
-           march_fixed)
-# "graph": A and B replayed; "graph_front": A replayed, the rest eager;
+           march_fixed, march_sphere, march_dda, sample_field)
+# "graph": A and a B replayed; "graph_front": A replayed, the rest eager;
 # "warm_up": the first step at a key, eager; "eager": not graphable
 ROUTES = ("graph", "graph_front", "warm_up", "eager")
 
@@ -93,24 +103,30 @@ def new_pool(device):
     return torch.cuda.graph_pool_handle() if enabled(device) else None
 
 
-def graphable(engine, state, *, global_mode=False, normals=None,
-              spmd_safe=False, shard=None) -> bool:
+def graphable(engine, *, global_mode=False, normals=None, spmd_safe=False,
+              shard=None) -> bool:
     """Whether ``run`` graphs this step: not global mode (JAX keeps a
-    ``_step_global`` of its own), not ``spmd_safe`` or split, the uniform
-    sampler (the normal-weighted one's ``eigh`` waits for the card),
-    nearest sampling at a capacity of whole tiles (the likelihood's
-    grouped tier), and a beam model that is off or grouped (the DDA and
-    over-long marches check their exit on the host)."""
-    p = engine.params
-    if (global_mode or spmd_safe or shard is not None or normals is not None
-            or p.use_random_sampler_with_normal):
-        return False
-    if p.likelihood.interp != "nearest" or state.capacity % og.TILE:
-        return False
-    from mcl_3dl_tpu_torch.engine import beam_num_steps
+    ``_step_global`` of its own), not ``spmd_safe`` or split, and the
+    uniform sampler (the normal-weighted one's ``eigh`` waits for the
+    card)."""
+    return not (global_mode or spmd_safe or shard is not None
+                or normals is not None
+                or engine.params.use_random_sampler_with_normal)
 
-    return not p.use_beam_model or (not p.beam.use_raycast_using_dda
-                                    and beam_num_steps(p) + 1 <= 64)
+
+def back_graphable(engine, state, df, front, fits) -> bool:
+    """Whether the remainder after the read of ``fits`` (``front``'s
+    flags) reads nothing on the host, so that a graph B may hold it: the
+    likelihood at tier 0 (its flag, first where it shares the grouping,
+    true) or not eligible for the box path (``likelihood.box_path``, the
+    rule ``likelihood_measure`` takes).  The beam reads nothing at any
+    tier on the card: K2 and M1 at tier 0, M2 or M3 at tier 2."""
+    group = front.group
+    if group is not None and group.share_like and fits[0]:
+        return True
+    p = engine.params
+    return not box_path(state.capacity, df.trunc, p.likelihood.match_dist_min,
+                        trilinear=p.likelihood.interp != "nearest")
 
 
 def step_key(state, cloud, origins, draws, use_beam, std_warn_thresh, df,
@@ -164,17 +180,17 @@ def launch_counts():
 
 class StepGraph:
     """One key's graphs: the static inputs, graph A and its outputs (a
-    ``StepFront``), graph B and its outputs, the launches each graph
-    holds, and whether B's eager remainder has run at this key (its
-    warm-up)."""
+    ``StepFront``), the launches it holds, one ``BackGraph`` a ``fits``
+    outcome, and the outcomes whose eager remainder has run at this key
+    (their warm-ups)."""
 
     def __init__(self, df, df_beam, device):
         self.maps = (df, df_beam)      # kept: the graphs read their tensors
         self.pool = new_pool(device)
         self.inputs: Optional[StepInputs] = None
         self.graph_a = self.front = self.launches_a = None
-        self.graph_b = self.back = self.launches_b = None
-        self.warm_b = False
+        self.backs: dict = {}
+        self.warm: set = set()
 
     def load(self, inputs: StepInputs) -> StepInputs:
         """Copy this step's inputs into the static buffers (made on first
@@ -205,12 +221,21 @@ class StepGraph:
         self._replay(self.graph_a, self.launches_a)
         return self.front
 
-    def replay_back(self, fn):
-        """B's outputs, copied out of the graph's buffers."""
-        if self.graph_b is None:
-            self.graph_b, self.back, self.launches_b = self._capture(fn)
-        self._replay(self.graph_b, self.launches_b)
-        return tree_map(torch.clone, self.back)
+    def replay_back(self, outcome, fn):
+        """The outcome's B outputs, copied out of the graph's buffers."""
+        back = self.backs.get(outcome)
+        if back is None:
+            back = self.backs[outcome] = BackGraph(*self._capture(fn))
+        self._replay(back.graph, back.launches)
+        return tree_map(torch.clone, back.out)
+
+
+class BackGraph(NamedTuple):
+    """A graph B: the graph, its outputs and the launches it holds."""
+
+    graph: object
+    out: tuple
+    launches: list
 
 
 def _device_bool(x, device) -> torch.Tensor:
@@ -228,7 +253,7 @@ def run(engine, state, df, df_beam, cloud, cloud_label, cloud_valid,
     graphs where ``enabled`` and ``graphable`` (module docstring)."""
     routes = engine.step_routes
     if not (enabled(state.device) and graphable(
-            engine, state, global_mode=global_mode, normals=normals,
+            engine, global_mode=global_mode, normals=normals,
             spmd_safe=spmd_safe, shard=shard)):
         routes["eager"] += 1
         return engine._measurement_step(
@@ -262,17 +287,21 @@ def run(engine, state, df, df_beam, cloud, cloud_label, cloud_valid,
         entry = engine._graphs[key] = StepGraph(df, df_beam, state.device)
         fr = front(given)
         fits = fr.fits()
-        entry.warm_b = all(fits)
+        if back_graphable(engine, state, df, fr, fits):
+            entry.warm.add(tuple(fits))
         routes["warm_up"] += 1
         return back(fr, fits, given)
 
     static = entry.load(given)
     fr = entry.replay_front(lambda: front(static))
     fits = fr.fits()
-    if all(fits) and entry.warm_b:
-        routes["graph"] += 1
-        return entry.replay_back(lambda: back(fr, fits, static))
-    entry.warm_b = entry.warm_b or all(fits)
+    outcome = tuple(fits)
+    if back_graphable(engine, state, df, fr, fits):
+        if outcome in entry.warm:
+            routes["graph"] += 1
+            return entry.replay_back(outcome,
+                                     lambda: back(fr, fits, static))
+        entry.warm.add(outcome)
     routes["graph_front"] += 1
     # copied: some outputs (``aux["points_not_found"]``) are graph A's
     return tree_map(torch.clone, back(fr, fits, given))

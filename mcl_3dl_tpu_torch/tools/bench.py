@@ -29,9 +29,10 @@ as ``tools.sharded.step_args`` builds them), at 1,048,576 particles
 Each step draws from the engine's generator inside the timed window and
 is timed on the host clock between two ``torch.cuda.synchronize()``
 calls; a row's time is the median of its steps.  Each row records the
-tiers its steps ran and the launches of kernels K1-K3 over its timed
-steps; the steady row also the routes ``_step`` took
-(``step_graph.ROUTES``).  ``BENCH_NO_BEAM``, ``BENCH_LIKE_POINTS`` and
+tiers its steps ran, the launches of kernels K1-K3 and M1-M4 over its
+timed steps and the routes ``_step`` took (``step_graph.ROUTES``; the
+trilinear row replays both graphs at tiers 2/0, the fallback row replays
+graph A and runs the rest eagerly).  ``BENCH_NO_BEAM``, ``BENCH_LIKE_POINTS`` and
 ``BENCH_HEADLINE_ONLY`` keep ``bench.py``'s meaning (the last two rows and
 the fallback row are then skipped; ``--quick`` skips them too).
 
@@ -67,6 +68,8 @@ import torch
 from mcl_3dl_tpu_torch import MCL3DL, Params, worlds
 from mcl_3dl_tpu_torch.config import LikelihoodParams
 from mcl_3dl_tpu_torch.engine import global_slots, resolve_device
+from mcl_3dl_tpu_torch.map.distance_field import sample_field
+from mcl_3dl_tpu_torch.models.beam import march_dda, march_fixed, march_sphere
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops import local_gather as olg
 from mcl_3dl_tpu_torch.tools import card
@@ -83,7 +86,8 @@ WIDE_COV = np.diag([1.0, 1.0, 1.0, 0.1, 0.1, 1.0])
 IDENT = np.array([0.0, 0.0, 0.0, 1.0])
 ORIGIN = np.array([0.0, 0.0, worlds.SENSOR_Z])
 KERNELS = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
-           "local": olg.local_score}
+           "local": olg.local_score, "march": march_fixed,
+           "sphere": march_sphere, "dda": march_dda, "field": sample_field}
 ROOT = Path(__file__).resolve().parents[2]
 
 
@@ -125,13 +129,20 @@ def _launches():
     return {k: fn.launches for k, fn in KERNELS.items()}
 
 
+def routes_since(eng, before):
+    """The routes ``_step`` took since the snapshot ``before`` (a copy of
+    ``eng.step_routes``), the zeros left out."""
+    return {k: v - before[k] for k, v in eng.step_routes.items()
+            if v != before[k]}
+
+
 def steps(eng, state, args, n, chain=True, eager=False, **kw):
     """``n`` measurement steps from ``state`` (each on the last one's
     output state with ``chain``, else each on ``state``) through
     ``eng._step`` (with ``eager``, ``eng._measurement_step``), each timed
     on the host clock between two synchronisations: ``(last output, ms a
-    step, sorted tiers, K1-K3 launches over the steps, their counts set to
-    0 just before)``."""
+    step, sorted tiers, the kernels' launches over the steps, their counts
+    set to 0 just before)``."""
     dev = eng.device
     step = eng._measurement_step if eager else eng._step
     times, tiers, out = [], set(), None
@@ -170,9 +181,8 @@ def steady_row(eng, args, warmup=6, iters=20):
     out = steps(eng, out[0], args, warmup)[0]
     before = dict(eng.step_routes)
     out, times, tiers, launches = steps(eng, out[0], args, iters)
-    routes = {k: v - before[k] for k, v in eng.step_routes.items()}
     return out, _row(times, tiers, launches, first_step_s=first_s,
-                     routes=routes)
+                     routes=routes_since(eng, before))
 
 
 def eager_row(eng, out, args, warmup=2, iters=20):
@@ -195,6 +205,7 @@ def push_cloud_row(eng, out, scans=PUSH_SCANS, seed=1):
     dev = eng.device
     rng = np.random.default_rng(seed)
     times, tiers, t = [], set(), 0.0
+    before = dict(eng.step_routes)
     _zero_launches()
     for _ in range(scans + 1):
         eng.odometry(np.zeros(3), IDENT, t)
@@ -208,7 +219,8 @@ def push_cloud_row(eng, out, scans=PUSH_SCANS, seed=1):
             tiers.add((eng.last_aux["tier_like"], eng.last_aux["tier_beam"]))
         t += 0.1
     launches = _launches()
-    return _row(times[1:], sorted(tiers), launches)
+    return _row(times[1:], sorted(tiers), launches,
+                routes=routes_since(eng, before))
 
 
 def fallback_row(eng, args, iters=5):
@@ -217,8 +229,9 @@ def fallback_row(eng, args, iters=5):
     eng.initial_pose(np.zeros(3), IDENT, WIDE_COV)
     wide = eng.pstate
     _first(eng, wide, args)
+    before = dict(eng.step_routes)
     _, times, tiers, launches = steps(eng, wide, args, iters, chain=False)
-    return _row(times, tiers, launches)
+    return _row(times, tiers, launches, routes=routes_since(eng, before))
 
 
 def trilinear_row(num_particles, device=None, warmup=6, iters=10):
@@ -243,9 +256,11 @@ def global_row(device=None, num_particles=GLOBAL_PARTICLES, grid=GLOBAL_GRID,
     kw = dict(global_mode=True,
               global_slots=global_slots(eng.params, seeded))
     _first(eng, state, args, **kw)
+    before = dict(eng.step_routes)
     _, times, tiers, launches = steps(eng, state, args, iters, chain=False,
                                       **kw)
-    return _row(times, tiers, launches, particles=seeded,
+    return _row(times, tiers, launches, routes=routes_since(eng, before),
+                particles=seeded,
                 capacity=state.capacity, like_slots=kw["global_slots"])
 
 
@@ -255,7 +270,8 @@ def _log(name, row, where):
     ms = row["step_ms_all"]
     print(f"bench {name}: median {row['step_ms']:.4f} ms over {len(ms)} "
           f"steps (min {min(ms):.4f}, max {max(ms):.4f}), tiers {row['tiers']}, "
-          f"launches {row['launches']}{extra} [{where}]",
+          f"routes {row.get('routes', {})}, launches {row['launches']}{extra} "
+          f"[{where}]",
           file=sys.stderr, flush=True)
 
 
@@ -351,7 +367,8 @@ def summarize(results, where):
             f"{label}_tiers": row_tiers,
             f"{label}_tier_like": max(t[0] for t in row_tiers),
             f"{label}_tier_beam": max(t[1] for t in row_tiers),
-            f"{label}_launches": [r[key]["launches"] for r in results]})
+            f"{label}_launches": [r[key]["launches"] for r in results],
+            f"{label}_routes": [r[key].get("routes", {}) for r in results]})
     if "global" in first:
         extra.update(global_mode_particles=first["global"]["particles"],
                      global_mode_capacity=first["global"]["capacity"],

@@ -10,16 +10,20 @@ The walls world (``make_world``: 40 vertical walls, 2,000,000 points from
 each distance-field cell (0.2, 0.4 m; truncation 0.6 m) and each
 occupancy-grid cell (0.2, 0.5 m): the build's seconds on the host through
 the port's native map compiler (the array placed on the card included),
-then the batch of casts, ``models.beam.raycast_df(df, b, e, cell, cell,
-0.3, 32)`` or ``raycast_occ(occ, b, e, 0.3, 0xFFFFFFFF, 48)``, after one
-warm-up call: the mean of ``REPS`` calls between two
-``torch.cuda.synchronize()`` calls, and the rays a second.  Each march
-checks on the host, every probe, whether every ray has finished (its
-early exit); the same casts with ``early_exit=False`` (every probe, no
-host read) are timed beside it, so the line shows what the check costs or
-saves.  One line per row, named with the card's ``nvidia-smi`` name and
-power limit; ``run`` returns the rows.  Without a card the tool exits
-with an error (``run(device="cpu", ...)`` is the CPU rehearsal).
+then the batch of casts in two rows: ``kernel``, the march as kernel M2
+(``models.beam.march_sphere(df, b, e, cell, cell, 0.3, 32)``) or M3
+(``march_dda(occ, b, e, 0.3, 0xFFFFFFFF, 48)``), and ``plain``, its plain
+version (``raycast_df`` or ``raycast_occ``), each after one warm-up call:
+the mean of ``REPS`` calls between two ``torch.cuda.synchronize()``
+calls, and the rays a second.  The plain loop checks on the host, every
+probe, whether every ray has finished (its early exit); the same casts
+with ``early_exit=False`` (every probe, no host read) are timed beside
+it.  The kernel row says whether its outputs equal the plain version's
+bit for bit, and how many times the kernel launched.  One line per row,
+named with the card's ``nvidia-smi`` name and power limit; ``run``
+returns the rows.  Without a card the tool exits with an error
+(``run(device="cpu", ...)`` is the CPU rehearsal: there the kernel's
+wrapper takes its plain version).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import torch
 from mcl_3dl_tpu_torch.engine import resolve_device
 from mcl_3dl_tpu_torch.map.distance_field import build_distance_field
 from mcl_3dl_tpu_torch.map.occupancy import build_occupancy_grid
-from mcl_3dl_tpu_torch.models.beam import raycast_df, raycast_occ
+from mcl_3dl_tpu_torch.models.beam import (march_dda, march_sphere,
+                                           raycast_df, raycast_occ)
 from mcl_3dl_tpu_torch.tools import card
 from mcl_3dl_tpu_torch.tools.bench import sync
 
@@ -107,30 +112,48 @@ def run(device=None, n_points=WORLD_POINTS, n_rays=N_RAYS, reps=REPS,
     log(f"world: {len(world)} points, {n_rays} rays [{where}]")
     rows = []
 
-    def row(name, grid, build_s, cast):
+    def row(name, grid, build_s, wrapper, plain, args):
+        """The kernel row (``wrapper``) and the plain row (``plain``) of
+        one map, both called on ``args``."""
+        def kernel(early):
+            return wrapper(*args, early_exit=early)
+
+        def cast(early):
+            return plain(*args, early_exit=early)
+
+        before = wrapper.launches
+        k_ms = cast_ms(lambda: kernel(True), dev, reps)
+        got, want = kernel(True), cast(True)
+        launches = wrapper.launches - before
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        hits = float(want[0].float().mean())
         ms = cast_ms(lambda: cast(True), dev, reps)
         fixed_ms = cast_ms(lambda: cast(False), dev, reps)
-        hits = float(cast(True)[0].float().mean())
-        rows.append(dict(name=name, build_s=build_s, cast_ms=ms,
+        base = dict(build_s=build_s, hit_share=hits, shape=list(grid.shape),
+                    device=where)
+        rows.append(dict(name=f"{name} kernel", cast_ms=k_ms,
+                         rays_per_s=n_rays / k_ms * 1e3,
+                         equal_to_plain=same, launches=launches, **base))
+        rows.append(dict(name=f"{name} plain", cast_ms=ms,
                          rays_per_s=n_rays / ms * 1e3,
-                         cast_ms_no_early_exit=fixed_ms, hit_share=hits,
-                         shape=list(grid.shape), device=where))
-        log(f"{name}: build {build_s:.4f} s, {n_rays} casts {ms:.4f} ms "
-            f"({n_rays / ms * 1e3:,.0f} rays/s); every probe without the "
-            f"host's early-exit check {fixed_ms:.4f} ms; hits {hits:.4f}; "
-            f"shape {grid.shape} [{where}]")
+                         cast_ms_no_early_exit=fixed_ms, **base))
+        log(f"{name}: build {build_s:.4f} s; kernel: {n_rays} casts "
+            f"{k_ms:.4f} ms ({n_rays / k_ms * 1e3:,.0f} rays/s, {launches} "
+            f"launches), bit-equal to plain {same}; plain: {ms:.4f} ms ({n_rays / ms * 1e3:,.0f} "
+            f"rays/s), every probe without the host's early-exit check "
+            f"{fixed_ms:.4f} ms; hits {hits:.4f}; shape {grid.shape} "
+            f"[{where}]")
 
     for cell in DF_CELLS:
         df, build_s = _built(
             lambda: build_distance_field(world, cell, TRUNC, device=dev), dev)
-        row(f"DF cell={cell:.1f}", df, build_s, lambda early: raycast_df(
-            df, b, e, cell, cell, HIT_TOLERANCE, DF_STEPS, early_exit=early))
+        row(f"DF cell={cell:.1f}", df, build_s, march_sphere, raycast_df,
+            (df, b, e, cell, cell, HIT_TOLERANCE, DF_STEPS))
     for cell in OCC_CELLS:
         occ, build_s = _built(
             lambda: build_occupancy_grid(world, cell, device=dev), dev)
-        row(f"DDA grid={cell:.1f}", occ, build_s, lambda early: raycast_occ(
-            occ, b, e, HIT_TOLERANCE, 0xFFFFFFFF, OCC_STEPS,
-            early_exit=early))
+        row(f"DDA grid={cell:.1f}", occ, build_s, march_dda, raycast_occ,
+            (occ, b, e, HIT_TOLERANCE, 0xFFFFFFFF, OCC_STEPS))
     return rows
 
 

@@ -8,8 +8,8 @@ rate (src/parameters.cpp:118: 64 by default, ~10 Hz demo).  For each
 particle count the engine and the step's arguments are the bench's
 (``tools.bench.build``: the flagship room world, the tracking spread, one
 4,096-point scan); every step through ``MCL3DL._step`` (the counterpart of
-the JAX tool's jitted step: CUDA graphs where the step is graphable, as
-at 16,384); the first step, 6 warm-up steps, then ``REPEATS``
+the JAX tool's jitted step: CUDA graphs where the step is graphable); the
+first step, 6 warm-up steps, then ``REPEATS``
 chained blocks of ``iters`` steps, each block timed on the host clock
 between two ``torch.cuda.synchronize()`` calls.  The step time is the
 median block over ``iters``; the blocks' min and max give its spread.
@@ -17,7 +17,11 @@ There is no relay to subtract, so ``fetch_overhead_ms`` is null.
 
 64 and 512 are not multiples of 1024, so the grouped tier does not apply
 to them (the eligibility rule stays the JAX package's); each row records
-the tiers every block ran and the tiers its last step ran.
+the tiers every block ran, the tiers its last step ran and the routes its
+timed steps took (``step_graph.ROUTES``): at 64 the step samples the
+whole field (M4) and marches every beam (M2) and replays both graphs; at
+512 its likelihood takes the box check, so the rest runs eagerly after
+graph A.
 
 One JSON line per row on stdout, with the card's ``nvidia-smi`` name and
 power limit; ``--out`` also writes the rows there, one a line.  The rows
@@ -34,7 +38,7 @@ import time
 
 from mcl_3dl_tpu_torch.engine import resolve_device
 from mcl_3dl_tpu_torch.tools import card
-from mcl_3dl_tpu_torch.tools.bench import build, steps, sync
+from mcl_3dl_tpu_torch.tools.bench import build, routes_since, steps, sync
 
 REPEATS = 7
 ITERS = 50
@@ -50,6 +54,7 @@ def run_config(n_particles, device=None, iters=ITERS, repeats=REPEATS,
     out, first_ms, _, _ = steps(eng, eng.pstate, args, 1)
     state = steps(eng, out[0], args, warmup)[0][0]
     blocks, block_tiers, block_end = [], [], []
+    before = dict(eng.step_routes)
     for _ in range(repeats):
         tiers = set()
         sync(dev)
@@ -80,6 +85,7 @@ def run_config(n_particles, device=None, iters=ITERS, repeats=REPEATS,
                                      max(blocks) / iters * 1e3],
         "block_end_tiers": block_end,
         "block_tiers": block_tiers,
+        "routes": routes_since(eng, before),
         "device": card(dev),
     }
 

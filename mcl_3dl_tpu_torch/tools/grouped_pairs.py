@@ -232,6 +232,92 @@ def march_case(eng, inp):
                                                     device=begins.device)
 
 
+def tier2_cases(eng, inp):
+    """M2-M4 at the main path's state: the tier-2 likelihood's queries
+    (each particle's sampled points, ``[N, K, 3]``, as
+    ``likelihood_measure`` forms them) and the tier-2 beam's rays (``[N,
+    B]`` from each particle's sensor origin to its beam points, as
+    ``beam_measure`` forms them) for ``inp`` (``kernel_inputs``).
+    ``{name: (kernel, plain, (bytes, ops), kept, library)}``: each
+    callable returns a tuple of outputs; bytes count each query or ray's
+    inputs read and outputs written once and the table (the field, its
+    corner pack, the occupancy grid) once; operations ~58 f32 a trilinear
+    query, ~10 a nearest one, ~24 a sphere-trace probe and ~16 a DDA probe
+    over the probes these rays take (the plain loops' count of live rays
+    a probe); every particle kept; ``library`` times
+    ``torch.nn.functional.grid_sample`` for the sampler (``None`` for the
+    marches)."""
+    from mcl_3dl_tpu_torch.engine import dda_num_steps, sphere_num_steps
+    from mcl_3dl_tpu_torch.map.distance_field import sample_field
+    from mcl_3dl_tpu_torch.models import beam as mb
+
+    p = eng.params
+    bp = p.beam
+    st = eng.pstate
+    df, df_beam, occ = eng.map.df, eng.map.df_beam, eng.map.occ
+    q = torch.einsum("kj,nij->nki", inp.like_pts, inp.rmat) + st.pos[:, None]
+    n, k = q.shape[:2]
+    kept = torch.arange(n, device=q.device)
+    cases = {}
+    grid = _grid_sample(df, q)
+    for tri, name, ops in ((True, "sample_field", 58),
+                           (False, "sample_field_nearest", 10)):
+        table = (df.packed.numel() * 4 if tri and df.packed is not None
+                 else df.field.numel())
+        plain = df.sample_trilinear if tri else df.sample_nearest
+        cases[name] = (lambda tri=tri: (sample_field(df, q, tri),),
+                       lambda plain=plain: (plain(q),),
+                       (q.numel() * 4 + n * k * 4 + table + 12, n * k * ops),
+                       kept, grid(tri))
+    org = inp.cloud[3][inp.beam_labels]
+    begins = torch.einsum("bj,nij->nbi", org, inp.rmat) + st.pos[:, None]
+    ends = torch.einsum("bj,nij->nbi", inp.beam_pts, inp.rmat) + st.pos[:, None]
+    rays = begins.shape[0] * begins.shape[1]
+    s_args = (df_beam, begins, ends, p.map_grid_min, p.map_grid_max,
+              bp.hit_range, sphere_num_steps(p))
+    setup = mb._sphere_setup(df_beam, begins, ends, p.map_grid_min,
+                             bp.hit_range)
+    _, probes = mb._sphere_loop(df_beam, begins, *setup, p.map_grid_min,
+                                p.map_grid_max, s_args[-1], True)
+    cases["march_sphere"] = (
+        lambda: mb.march_sphere(*s_args), lambda: mb.raycast_df(*s_args),
+        (rays * 57 + df_beam.field.numel() + 12, probes * 24), kept, None)
+    d_args = (occ, begins, ends, bp.hit_range, bp.filter_label_max,
+              dda_num_steps(p), bp.ray_angle_half, p.min_dist_thr_sq)
+    setup = mb._dda_setup(occ, begins, ends, bp.hit_range)
+    _, probes = mb._dda_loop(occ, begins, *setup, *d_args[4:], True)
+    cells = occ.occupied.numel() * 9 + occ.rep_point.numel() + 12
+    cases["march_dda"] = (
+        lambda: mb.march_dda(*d_args), lambda: mb.raycast_occ(*d_args),
+        (rays * 54 + cells, probes * 16), kept, None)
+    return cases
+
+
+def _grid_sample(df, q):
+    """``tri -> callable``: ``torch.nn.functional.grid_sample`` (trilinear
+    with ``tri``, else nearest) at the queries ``q`` over a float copy of
+    the field padded by one ``trunc`` cell on every side
+    (``align_corners=True``, border padding), the one PyTorch call that
+    samples a volume; not bit-equal to the field's samplers (its own
+    coordinates and rounding), a yardstick of speed only."""
+    import torch.nn.functional as F
+
+    trunc = float(df.trunc)
+    vol = F.pad(df.field.float() * (trunc / 255.0), (1, 1, 1, 1, 1, 1),
+                value=trunc)[None, None]
+    w = torch.tensor(df.weights, dtype=torch.float32, device=q.device)
+    u = (q * w - df.origin) / df.cell + 1.0
+    size = torch.tensor(vol.shape[2:], dtype=torch.float32, device=q.device)
+    grid = (2.0 * u / (size - 1.0) - 1.0).flip(-1).reshape(1, -1, 1, 1, 3)
+
+    def call(tri):
+        mode = "bilinear" if tri else "nearest"
+        return lambda: (F.grid_sample(vol, grid, mode=mode,
+                                      padding_mode="border",
+                                      align_corners=True),)
+    return call
+
+
 def recovery_cloud(eng):
     """The fresh scan that phase 7 of ``chip_smoke.py`` scores a recovery
     step's state with, prepared by ``eng`` (``default_rng(2)``)."""

@@ -56,8 +56,10 @@ def _row_ok(row, steps):
     assert all(math.isfinite(t) and t > 0 for t in row["step_ms_all"])
     assert row["step_ms"] == np.median(row["step_ms_all"])
     assert row["tiers"] and all(len(t) == 2 for t in row["tiers"])
-    assert set(row["launches"]) == {"like", "beam", "local"}
+    assert set(row["launches"]) == {"like", "beam", "local", "march",
+                                    "sphere", "dda", "field"}
     assert all(v == 0 for v in row["launches"].values())   # plain on the CPU
+    assert set(row["routes"]) <= {"eager"}    # no graphs on the CPU
 
 
 @pytest.fixture(scope="module")

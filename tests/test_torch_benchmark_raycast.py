@@ -137,9 +137,15 @@ def test_run_rehearses_every_row_on_the_cpu():
     rows = tbr.run("cpu", n_points=SMALL_WORLD, n_rays=SMALL_RAYS, reps=1,
                    log=lines.append)
     assert [r["name"] for r in rows] == [
-        "DF cell=0.2", "DF cell=0.4", "DDA grid=0.2", "DDA grid=0.5"]
+        f"{m} {route}" for m in ("DF cell=0.2", "DF cell=0.4", "DDA grid=0.2",
+                                 "DDA grid=0.5")
+        for route in ("kernel", "plain")]
     for r in rows:
         assert r["build_s"] > 0 and r["cast_ms"] > 0
-        assert r["cast_ms_no_early_exit"] > 0 and 0 < r["hit_share"] < 1
+        assert 0 < r["hit_share"] < 1
         assert r["device"].startswith("no card")
+    for kernel, plain in zip(rows[::2], rows[1::2]):
+        # on the CPU the kernel's wrapper takes the plain version: no launch
+        assert kernel["equal_to_plain"] and kernel["launches"] == 0
+        assert plain["cast_ms_no_early_exit"] > 0
     assert len(lines) == 5

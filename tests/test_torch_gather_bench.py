@@ -391,7 +391,7 @@ def test_gather_pairs_variant_is_a_copy_with_defines(tmp_path, monkeypatch):
     (tmp_path / pkg.name / "csrc").mkdir()
     for f in ("build.py",) + tuple(f"{m}.py" for m in grouped_pairs.COPY_MODULES):
         (tmp_path / pkg.name / "ops" / f).write_text((pkg / "ops" / f).read_text())
-    for f in build.SOURCES + (build.BINDING,):
+    for f in build.SOURCES + build.HEADERS + (build.BINDING,):
         (tmp_path / pkg.name / "csrc" / f).write_text((pkg / "csrc" / f).read_text())
     mod = gather_pairs.variant("3x256", gather_pairs.VARIANTS["3x256"])
     copy = tmp_path / "build" / "variants" / "3x256" / pkg.name

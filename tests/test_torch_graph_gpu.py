@@ -11,7 +11,12 @@ the card.
   at beam tier 0, replayed or eager;
 * ``initial_pose`` between graphed steps: ``push_cloud`` through the
   graphs against a twin engine stepping eagerly, bit-equal before and
-  after the re-seed.
+  after the re-seed;
+* 10 chained graphed steps of the tier-2 outcomes against 10 eager ones
+  on the same draws, every output bit-equal, each step replaying graph B
+  once its outcome has warmed up: trilinear sampling at 1,048,576
+  particles (M4 with K2), 64 particles (no grouping: M4 and M2) and the
+  DDA beam at 4,096 (K1 with M3), with the kernels counted.
 
 Skipped without a CUDA device.  On the card, with no JAX installed:
 
@@ -23,8 +28,11 @@ import pytest
 import torch
 
 from mcl_3dl_tpu_torch import worlds
+from mcl_3dl_tpu_torch.config import BeamParams
 from mcl_3dl_tpu_torch.engine import beam_num_steps
-from mcl_3dl_tpu_torch.models.beam import march_fixed, raycast_fixed
+from mcl_3dl_tpu_torch.map.distance_field import sample_field
+from mcl_3dl_tpu_torch.models.beam import (march_dda, march_fixed,
+                                           march_sphere, raycast_fixed)
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.tools import bench
 from mcl_3dl_tpu_torch.tools.sharded import outputs_equal
@@ -149,3 +157,49 @@ def test_initial_pose_between_graphed_steps(cuda):
                   "tier_beam"):
             np.testing.assert_array_equal(ag[k], ae[k])
     assert outputs_equal(tuple(eng_g.pstate), tuple(eng_e.pstate))
+
+
+TIER2 = {
+    # name -> (particles, bench.build keywords, kernels every step launches)
+    "trilinear-1M": (1 << 20, dict(interp="trilinear"), (sample_field,)),
+    "small-64": (64, {}, (sample_field, march_sphere)),
+    "dda-4096": (4096, dict(beam=BeamParams(use_raycast_using_dda=True)),
+                 (march_dda,)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TIER2))
+def test_tier2_graphed_steps_equal_eager_steps(cuda, case):
+    n, kw, every_step = TIER2[case]
+    eng, _, args = bench.build(n, cuda, **kw)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    keeps = eng.keeps(args[2], args[4])
+    draws = [eng.draw_step(*keeps, gen=gen) for _ in range(12)]
+    _chain(eng._step, eng.pstate, args, draws[:2])     # warm-up, captures
+    counted = (sample_field, march_sphere, march_dda, og.grouped_like_score,
+               og.grouped_beam_pen)
+    for k in counted:
+        k.launches = 0
+    routes = dict(eng.step_routes)
+    graphed = _chain(eng._step, eng.pstate, args, draws[2:])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counted}
+    taken = {k: v - routes[k] for k, v in eng.step_routes.items()}
+    eager = _chain(eng._measurement_step, eng.pstate, args, draws[2:])
+    torch.cuda.synchronize()
+    for i, (g, e) in enumerate(zip(graphed, eager)):
+        assert outputs_equal(g, e), f"step {i}"
+    tiers = [(o[5]["tier_like"], o[5]["tier_beam"]) for o in eager]
+    # a step replays B once its outcome has run eagerly at this key; the
+    # tier-2 outcomes all read nothing on the host
+    assert taken["graph"] >= 8 and taken["graph"] + taken["graph_front"] == 10, (
+        taken, tiers)
+    for k in every_step:
+        assert launches[k.__name__] == 10, (launches, tiers)
+    if case == "trilinear-1M":
+        assert all(t[0] == 2 for t in tiers) and (2, 0) in tiers, tiers
+    elif case == "small-64":
+        assert tiers == [(2, 2)] * 10, tiers
+    else:
+        assert all(t[1] == 2 for t in tiers) and (0, 2) in tiers, tiers

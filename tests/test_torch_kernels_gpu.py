@@ -3,26 +3,40 @@ card: bit-equal on every slot whose value the caller keeps (the kernels are
 built with -fmad=false and keep the plain versions' operation order).
 The lookup kernels G1-G10 (``ops/gather_bench.py``), at small sizes with
 ragged block edges and at the edges of their schedules, must equal their
-plain versions everywhere.
+plain versions everywhere.  The tier-2 kernels M2-M4 (``march_sphere``,
+``march_dda``, ``sample_field``) equal their plain versions bit for bit
+on the flagship world's maps, with and without the plain loops' early
+exit; the tier-2 models run under ``torch.cuda.set_sync_debug_mode
+("error")`` (no host read); under ``torch.func.vmap`` each launches once
+and gives every robot's bits.
 
 Skipped without a CUDA device.  On the card, with no JAX installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 """
 
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from mcl_3dl_tpu_torch.map.distance_field import build_distance_field
+from mcl_3dl_tpu_torch import worlds
+from mcl_3dl_tpu_torch.config import BeamParams, Params
+from mcl_3dl_tpu_torch.engine import dda_num_steps, sphere_num_steps
+from mcl_3dl_tpu_torch.map.distance_field import (build_distance_field,
+                                                  sample_field)
+from mcl_3dl_tpu_torch.map.map_data import MapData
 from mcl_3dl_tpu_torch.math import cumsum
 from mcl_3dl_tpu_torch.math import quat as mq
-from mcl_3dl_tpu_torch.models.beam import (BeamVirtualPoints,
-                                           grouped_beam_inputs)
+from mcl_3dl_tpu_torch.models.beam import (BeamVirtualPoints, beam_measure,
+                                           grouped_beam_inputs, march_dda,
+                                           march_sphere, raycast_df,
+                                           raycast_occ)
 from mcl_3dl_tpu_torch.models.likelihood import (box_queries, box_tables,
-                                                 grouped_like_inputs)
+                                                 grouped_like_inputs,
+                                                 likelihood_measure)
 from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops import gather_bench as ogb
@@ -690,3 +704,234 @@ def test_two_builds_in_one_process(cuda):
     assert torch.equal(mine, want) and torch.equal(theirs, want)
     assert ogb.lane_gather_u8.launches == n0 + 1
     assert other.gather_bench.lane_gather_u8.launches == m0 + 1
+
+
+# ---- M2-M4 (csrc/tier2.cu)
+
+_ORIGIN = np.array([0.0, 0.0, worlds.SENSOR_Z])
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """The flagship world's maps on the card, labels 0-2 with
+    ``filter_label_max`` 1 (a label-filtered beam field and grid)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pts = worlds.world_map()
+    labels = np.random.default_rng(7).integers(0, 3, len(pts)).astype(
+        np.uint32)
+    params = Params(beam=BeamParams(filter_label_max=1))
+    return params, MapData.build(pts, params, labels, device="cuda")
+
+
+def _t2_rays(seed, n, spread):
+    """``(begins, ends)`` [n // 3, 3, 3] on the card: from about the sensor
+    origin to scan points, poses spread by ``spread`` m (and 0.2 * spread
+    rad of yaw); 7 zero-length rays and 7 that begin outside the map."""
+    rng = np.random.default_rng(seed)
+    pts = worlds.scan(rng, n)
+    yaw = rng.normal(0.0, 0.2 * spread, n)
+    c, s = np.cos(yaw), np.sin(yaw)
+    shift = np.stack([rng.normal(0, spread, n), rng.normal(0, spread, n),
+                      rng.normal(0, 0.05, n)], axis=1)
+    ends = np.stack([c * pts[:, 0] - s * pts[:, 1],
+                     s * pts[:, 0] + c * pts[:, 1], pts[:, 2]], axis=1) + shift
+    begins = _ORIGIN[None] + shift
+    ends[:7] = begins[:7]
+    begins[7:14] += np.array([40.0, -30.0, 5.0])
+    t = to_device(torch.device("cuda"))
+    return (t(begins.astype(np.float32)).reshape(-1, 3, 3),
+            t(ends.astype(np.float32)).reshape(-1, 3, 3))
+
+
+def _equal(got, want):
+    for a, w in zip(got, want, strict=True):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("early_exit", [True, False], ids=["early", "fixed"])
+@pytest.mark.parametrize("spread", [0.05, 1.0, 30.0])
+def test_march_sphere_matches_plain(flagship, spread, early_exit):
+    p, m = flagship
+    b, e = _t2_rays(21, 3 * 8192, spread)
+    args = (m.df_beam, b, e, p.map_grid_min, p.map_grid_max,
+            p.beam.hit_range, sphere_num_steps(p))
+    before = march_sphere.launches
+    got = march_sphere(*args, early_exit=early_exit)
+    want = raycast_df(*args, early_exit=early_exit)
+    torch.cuda.synchronize()
+    assert march_sphere.launches == before + 1
+    _equal(got, want)
+    if spread < 1.0:
+        assert 0.05 < float(got[0].float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("early_exit", [True, False], ids=["early", "fixed"])
+@pytest.mark.parametrize("refine", [True, False], ids=["perp", "voxel"])
+@pytest.mark.parametrize("spread", [0.05, 30.0])
+def test_march_dda_matches_plain(flagship, spread, refine, early_exit):
+    p, m = flagship
+    rah, mdts = ((p.beam.ray_angle_half, p.min_dist_thr_sq) if refine
+                 else (0.0, 0.0))
+    b, e = _t2_rays(22, 3 * 8192, spread)
+    args = (m.occ, b, e, p.beam.hit_range, 1, dda_num_steps(p), rah, mdts)
+    before = march_dda.launches
+    got = march_dda(*args, early_exit=early_exit)
+    want = raycast_occ(*args, early_exit=early_exit)
+    torch.cuda.synchronize()
+    assert march_dda.launches == before + 1
+    _equal(got, want)
+    if spread < 1.0:
+        assert 0.05 < float(got[0].float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("mode", ["nearest", "trilinear", "eight_corners"])
+def test_sample_field_matches_plain(flagship, mode):
+    _, m = flagship
+    df = m.df
+    if mode == "eight_corners":
+        df = dataclasses.replace(df, packed=None)
+    rng = np.random.default_rng(23)
+    q = rng.uniform([-7.0, -7.0, -1.0], [7.0, 7.0, 3.5], (4096, 96, 3))
+    q[:64] = np.round(q[:64] * 20.0) / 20.0      # on the 0.05 m grid
+    q = to_device(torch.device("cuda"))(q.astype(np.float32))
+    tri = mode != "nearest"
+    before = sample_field.launches
+    got = sample_field(df, q, tri)
+    want = df.sample_trilinear(q) if tri else df.sample_nearest(q)
+    torch.cuda.synchronize()
+    assert sample_field.launches == before + 1
+    _equal((got,), (want,))
+    assert 0.05 < float((got < df.trunc).float().mean()) < 1.0
+
+
+def _tier2_inputs(n):
+    """``n`` poses about the origin, 96 scan points and the sensor origin
+    on the card."""
+    rng = np.random.default_rng(24)
+    t = to_device(torch.device("cuda"))
+    pos = t(rng.normal(0, 0.1, (n, 3)).astype(np.float32))
+    rot = mq.from_rpy(t(rng.normal(0, 0.05, (n, 3)).astype(np.float32)))
+    pts = t(worlds.scan(rng, 96).astype(np.float32))
+    return (pos, rot, pts, torch.ones(96, dtype=torch.bool, device="cuda"),
+            torch.zeros(3, dtype=torch.int64, device="cuda"),
+            t(_ORIGIN[None].astype(np.float32)))
+
+
+def _tier2_models(p, m, inputs):
+    """The tier-2 models on ``inputs`` (``_tier2_inputs``): the beam
+    through M2 and M3, the likelihood nearest (no box path below 128
+    particles) and trilinear through M4."""
+    pos, rot, pts, valid, idx, origins = inputs
+    bp = p.beam
+    kw = dict(map_grid_min=p.map_grid_min, map_grid_max=p.map_grid_max,
+              hit_range=bp.hit_range, beam_likelihood_min=bp.beam_likelihood,
+              num_points_default=3, sin_total_ref=0.5,
+              add_penalty_short_only_mode=False, occ=m.occ,
+              filter_label_max=bp.filter_label_max,
+              ray_angle_half=bp.ray_angle_half,
+              min_dist_thr_sq=p.min_dist_thr_sq)
+    lp = p.likelihood
+    like = (m.df, pos, rot, pts, valid, lp.match_dist_min,
+            lp.match_dist_flat, lp.match_weight)
+    return (beam_measure(m.df_beam, pos, rot, pts[:3], idx, valid[:3],
+                         origins, num_steps=sphere_num_steps(p), **kw),
+            beam_measure(m.df_beam, pos, rot, pts[:3], idx, valid[:3],
+                         origins, num_steps=dda_num_steps(p), use_dda=True,
+                         **kw),
+            likelihood_measure(*like),
+            likelihood_measure(*like, trilinear=True))
+
+
+def test_tier2_models_read_nothing_on_the_host(flagship):
+    """Beam (DF and DDA) and tier-2 likelihood (nearest and trilinear)
+    make no synchronizing call once warm (kernels built, constants
+    made)."""
+    p, m = flagship
+    inputs = _tier2_inputs(64)
+    want = _tier2_models(p, m, inputs)
+    counts = [k.launches for k in (march_sphere, march_dda, sample_field)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _tier2_models(p, m, inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (march_sphere, march_dda, sample_field)] == [
+        counts[0] + 1, counts[1] + 1, counts[2] + 2]
+    for g, w in zip(got, want):
+        assert [x for x in g if not torch.is_tensor(x)] == [
+            x for x in w if not torch.is_tensor(x)]
+        _equal([x for x in g if torch.is_tensor(x)],
+               [x for x in w if torch.is_tensor(x)])
+    assert got[2][2] == got[3][2] == 2                  # tier 2
+
+
+def test_vmap_launches_once_with_every_robots_bits(flagship):
+    """Under ``torch.func.vmap`` each tier-2 kernel folds the robots into
+    its rays or queries (``build.fold_rule``): one launch for the batch
+    through the wrapper, and each robot's outputs equal to the operator
+    called on that robot alone (the marches on per-robot set-ups, one
+    argument also unbatched)."""
+    from mcl_3dl_tpu_torch.models import beam as mb
+
+    p, m = flagship
+    rays = [_t2_rays(30 + i, 3 * 512, 0.5) for i in range(4)]
+    b = torch.stack([r[0] for r in rays])
+    e = torch.stack([r[1] for r in rays])
+    q = torch.cat([b, e], dim=2)                      # [4, 512, 6, 3]
+    sphere = (p.map_grid_min, p.map_grid_max, p.beam.hit_range,
+              sphere_num_steps(p))
+    dda = (p.beam.hit_range, 1, dda_num_steps(p), p.beam.ray_angle_half,
+           p.min_dist_thr_sq)
+    wrapped = ((sample_field, lambda x: sample_field(m.df, x, True), (q,)),
+               (march_sphere, lambda x, y: march_sphere(m.df_beam, x, y,
+                                                        *sphere), (b, e)),
+               (march_dda, lambda x, y: march_dda(m.occ, x, y, *dda), (b, e)))
+    for wrapper, fn, args in wrapped:
+        before = wrapper.launches
+        got = torch.func.vmap(fn)(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, wrapper.__name__
+        got = got if isinstance(got, tuple) else (got,)
+        assert all(g.shape[0] == 4 for g in got)
+        if wrapper is sample_field:       # no set-up around the kernel
+            for i in range(4):
+                _equal((got[0][i],), (fn(q[i]),))
+
+    df, occ = m.df_beam, m.occ
+    trunc = float(df.trunc)
+    w = [float(np.float32(x)) for x in df.weights]
+    f32 = lambda x: float(np.float32(x))        # noqa: E731
+    op_s = build.op("march_sphere")
+    op_d = build.op("march_dda")
+
+    def sphere_op(bb, d, mt, wu):
+        return op_s(bb, d, mt, wu, df.field, df.origin, sphere[3], *w,
+                    f32(df.cell), f32(trunc / 255.0), f32(trunc),
+                    f32(p.map_grid_min), f32(2.0 ** 0.5 * p.map_grid_max / 2),
+                    f32(trunc * 0.99))
+
+    def dda_op(bb, d, mt, inside, bv):
+        return op_d(bb, d, mt, inside, bv, occ.occupied, occ.min_label,
+                    occ.rep_point, occ.origin, dda[2], f32(occ.cell * 0.5),
+                    f32(occ.cell), 1, f32(dda[3]), f32(dda[4]), True)
+
+    flat_b = b.reshape(4, -1, 3)
+    flat_e = e.reshape(4, -1, 3)
+    s_set = [mb._sphere_setup(df, flat_b[i], flat_e[i], p.map_grid_min,
+                              p.beam.hit_range) for i in range(4)]
+    d_set = [mb._dda_setup(occ, flat_b[i], flat_e[i], p.beam.hit_range)
+             for i in range(4)]
+    s_args = [flat_b] + [torch.stack(x) for x in zip(*s_set)]
+    d_args = [flat_b] + [torch.stack(x) for x in zip(*d_set)]
+    for op, args, dims in ((sphere_op, s_args, (0, 0, 0, 0)),
+                           (dda_op, d_args, (0, 0, 0, 0, 0)),
+                           (sphere_op, [flat_b[0]] + s_args[1:],
+                            (None, 0, 0, 0))):
+        got = torch.func.vmap(op, in_dims=dims)(*args)
+        for i in range(4):
+            want = op(*(a if d is None else a[i] for a, d in zip(args, dims)))
+            _equal([g[i] for g in got], want)
