@@ -52,6 +52,11 @@ without grouping, the DDA beam), else eagerly; on the CPU ``_step`` is
 ``_measurement_step``.  Every service that replaces the particle state
 or the map drops the graphs (``drop_step_graphs``).
 
+Each public call (``push_cloud``, ``odometry``, ``imu``,
+``initial_pose``) is a request of the program's tracer,
+``profiling.spans``, whose spans split it at the layers' boundaries (the
+shell's ``scan.*`` pieces, the step, the host reads ``read.*``).
+
 The fleet and the splits over ``torch.distributed`` are ``parallel/``;
 the step gains two switches for them.  ``spmd_safe`` (the batched fleet,
 ``torch.func.vmap`` over the step) reads nothing on the host: the
@@ -68,7 +73,6 @@ slice, and ``aux`` reports the worst tier any slice paid.
 from __future__ import annotations
 
 import math
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -103,6 +107,7 @@ from mcl_3dl_tpu_torch.models.samplers import (
     normal_weight_direction, sample_uniform,
     sample_weighted_without_replacement, weights_along)
 from mcl_3dl_tpu_torch.ops import grouped as og
+from mcl_3dl_tpu_torch.profiling import now, spans
 from mcl_3dl_tpu_torch.shard import offset as shard_offset
 from mcl_3dl_tpu_torch.state import ParticleState
 from mcl_3dl_tpu_torch.status import (ConvergenceStatus, Diagnostics,
@@ -134,7 +139,10 @@ class GroupFront(NamedTuple):
 
     def fits(self) -> list:
         """The host read of ``flags`` ([] without them)."""
-        return [] if self.flags is None else self.flags.tolist()
+        if self.flags is None:
+            return []
+        with spans.span("read.fits"):
+            return self.flags.tolist()
 
 
 class StepFront(NamedTuple):
@@ -345,6 +353,8 @@ class MCL3DL:
         """Forget ``_step``'s graphs (the next step at a key warms it up
         again), as the JAX engine re-creates its jitted step: every service
         that replaces the particle state or the map calls this."""
+        if self._graphs:
+            spans.count("graph.drops")
         self._graphs.clear()
 
     # ------------------------------------------------------------ randomness
@@ -440,25 +450,31 @@ class MCL3DL:
 
     def initial_pose(self, pos, rot, cov66) -> None:
         """initialpose re-seed (cbPosition, src/mcl_3dl.cpp:155-198)."""
-        rot = np.asarray(rot, np.float64)
-        if abs(float(np.sum(rot * rot)) - 1.0) > 0.1:
-            raise ValueError("initialpose orientation must be a unit quaternion")
-        rpy = mqn.to_rpy(rot)
-        self.drop_step_graphs()
-        cap = self.pstate.capacity
-        self.pstate = st.init_multivariate(
-            self._normals(cap, 6), cap, self.params.num_particles,
-            np.asarray(pos, np.float32), np.asarray(rpy, np.float32), cov66)
-        self.pstate = reset_error_integrals(self.pstate)
-        self._n_active_host = self.params.num_particles
-        # state_prev_ stays: the next measurement sees the re-seed as a
-        # pose jump and resets the TF smoothers (:155-198)
-        self._maybe_shrink_capacity(self._n_active_host)
+        with spans.request("initial_pose"):
+            rot = np.asarray(rot, np.float64)
+            if abs(float(np.sum(rot * rot)) - 1.0) > 0.1:
+                raise ValueError(
+                    "initialpose orientation must be a unit quaternion")
+            rpy = mqn.to_rpy(rot)
+            self.drop_step_graphs()
+            cap = self.pstate.capacity
+            self.pstate = st.init_multivariate(
+                self._normals(cap, 6), cap, self.params.num_particles,
+                np.asarray(pos, np.float32), np.asarray(rpy, np.float32), cov66)
+            self.pstate = reset_error_integrals(self.pstate)
+            self._n_active_host = self.params.num_particles
+            # state_prev_ stays: the next measurement sees the re-seed as a
+            # pose jump and resets the TF smoothers (:155-198)
+            self._maybe_shrink_capacity(self._n_active_host)
 
     # ------------------------------------------------------------ odom / imu
 
     def odometry(self, pos, rot, t: float) -> None:
         """cbOdom (src/mcl_3dl.cpp:200-247)."""
+        with spans.request("odometry"):
+            self._odometry(pos, rot, t)
+
+    def _odometry(self, pos, rot, t: float) -> None:
         pos = np.asarray(pos, np.float32)
         rot = np.asarray(rot, np.float32)
         self.odom_pos, self.odom_rot = pos, rot
@@ -473,11 +489,13 @@ class MCL3DL:
             return
         if dt > 0.05:
             p = self.params
-            delta = OdomDelta.from_poses(self.odom_prev_pos, self.odom_prev_rot,
-                                         pos, rot, dt, device=self.device)
-            self.pstate = predict_differential_drive(
-                self.pstate, delta, p.odom_err_integ_lin_tc,
-                p.odom_err_integ_ang_tc)
+            with spans.span("odometry.predict"):
+                delta = OdomDelta.from_poses(
+                    self.odom_prev_pos, self.odom_prev_rot, pos, rot, dt,
+                    device=self.device)
+                self.pstate = predict_differential_drive(
+                    self.pstate, delta, p.odom_err_integ_lin_tc,
+                    p.odom_err_integ_ang_tc)
             self.odom_last = t
             self.odom_prev_pos, self.odom_prev_rot = pos, rot
         if self.params.fake_imu:
@@ -487,6 +505,10 @@ class MCL3DL:
     def imu(self, acc, orientation, t: float) -> None:
         """cbImu (src/mcl_3dl.cpp:941-1018); ``acc`` and ``orientation`` in
         the base_link frame."""
+        with spans.request("imu"):
+            self._imu(acc, orientation, t)
+
+    def _imu(self, acc, orientation, t: float) -> None:
         self.f_acc, acc_f = mf.filter_step(
             self.f_acc, torch.as_tensor(acc, dtype=torch.float32))
         if not self.has_imu:
@@ -499,11 +521,13 @@ class MCL3DL:
             self.has_imu = False
             return
         if dt > 0.05:
-            acc_measure = (acc_f / torch.linalg.vector_norm(acc_f)).to(self.device)
-            self.imu_quat = np.asarray(orientation, np.float32)
-            lik = imu_gravity_likelihood(self.pstate.rot, acc_measure,
-                                         self.params.acc_var)
-            self.pstate, _ = pf.measure(self.pstate, lik)
+            with spans.span("imu.weigh"):
+                acc_measure = (acc_f / torch.linalg.vector_norm(acc_f)).to(
+                    self.device)
+                self.imu_quat = np.asarray(orientation, np.float32)
+                lik = imu_gravity_likelihood(self.pstate.rot, acc_measure,
+                                             self.params.acc_var)
+                self.pstate, _ = pf.measure(self.pstate, lik)
             self.imu_last = t
             if self.params.fake_odom:
                 self.odometry(np.zeros(3, np.float32), self.imu_quat, t)
@@ -522,6 +546,11 @@ class MCL3DL:
         """cbCloud (src/mcl_3dl.cpp:248-302): points already in the odom
         frame; returns a MeasureResult when this cloud triggered a
         measurement."""
+        with spans.request("push_cloud"):
+            return self._push_cloud(frame_id, points_odom, sensor_origin_odom,
+                                    t)
+
+    def _push_cloud(self, frame_id, points_odom, sensor_origin_odom, t):
         if not self.has_map or not self.has_odom:
             return None
         self.status = Status(status=FilterStatus.NORMAL, error=ErrorCode.NORMAL,
@@ -532,11 +561,15 @@ class MCL3DL:
             result[0] = self._measure(t)
 
         def accumulate(msg):
-            pts, origin = msg
-            self._accum_points.append(np.asarray(pts, np.float64).reshape(-1, 3))
-            self._accum_origins.append(np.asarray(origin, np.float64).reshape(3))
-            self._accum_odom.append((self.odom_pos.copy(), self.odom_rot.copy()))
-            self._accum_stamps.append(t)
+            with spans.span("scan.accumulate"):
+                pts, origin = msg
+                self._accum_points.append(
+                    np.asarray(pts, np.float64).reshape(-1, 3))
+                self._accum_origins.append(
+                    np.asarray(origin, np.float64).reshape(3))
+                self._accum_odom.append((self.odom_pos.copy(),
+                                         self.odom_rot.copy()))
+                self._accum_stamps.append(t)
             return True
 
         self.accum.push(frame_id, (points_odom, sensor_origin_odom), process,
@@ -553,14 +586,15 @@ class MCL3DL:
         if not self._accum_points:
             self.status.error = ErrorCode.POINTS_NOT_FOUND
             return None
-        odom_pos, odom_rot = self._accum_odom[-1]
-        inv_rot = mqn.inv(odom_rot)
-        pts = np.concatenate(self._accum_points, axis=0)
-        labels = np.concatenate([np.full((len(p),), i, np.int32)
-                                 for i, p in enumerate(self._accum_points)])
-        pts_base = mqn.rotate(inv_rot, pts - odom_pos).astype(np.float32)
-        origins = np.stack(self._accum_origins, axis=0)
-        origins_base = mqn.rotate(inv_rot, origins - odom_pos).astype(np.float32)
+        with spans.span("scan.transform"):
+            odom_pos, odom_rot = self._accum_odom[-1]
+            inv_rot = mqn.inv(odom_rot)
+            pts = np.concatenate(self._accum_points, axis=0)
+            labels = np.concatenate([np.full((len(p),), i, np.int32)
+                                     for i, p in enumerate(self._accum_points)])
+            pts_base = mqn.rotate(inv_rot, pts - odom_pos).astype(np.float32)
+            origins = np.stack(self._accum_origins, axis=0)
+            origins_base = mqn.rotate(inv_rot, origins - odom_pos).astype(np.float32)
         return self._measure_base(pts_base, labels, origins_base,
                                   self._accum_stamps[-1],
                                   odom=(odom_pos, odom_rot))
@@ -607,8 +641,22 @@ class MCL3DL:
         self.cnt_measure += 1
         if self.cnt_measure % max(int(self.params.skip_measure), 1) != 0:
             return None
+        with spans.span("scan"):
+            t0 = now()
+            with spans.span("scan.prepare"):
+                args = self._step_inputs(pts_base, labels, origins_base, odom)
+            (self.pstate, self.f_pos, self.f_ang, self.state_prev_pos,
+             self.state_prev_rot, aux) = self._step(*args[0], **args[1])
+            with spans.span("read.aux"):
+                aux = to_host(aux)
+            with spans.span("scan.publish"):
+                return self._publish(aux, t, t0)
+
+    def _step_inputs(self, pts_base, labels, origins_base, odom):
+        """``_step``'s positional and keyword arguments for a base-frame
+        cloud: the downsampled, padded cloud and the odometry on the
+        device, the filters, and the graph selection."""
         p = self.params
-        ts = time.monotonic()
         dev = self.device
         self._last_scan_base, cloud = self.prepare_cloud(pts_base, labels,
                                                          origins_base)
@@ -636,18 +684,24 @@ class MCL3DL:
         # num_particles a global-mode step runs, its likelihood slots
         # bucketed along the reference's ramp and the beam dropped
         global_mode = self._n_active_host > p.num_particles
-        (self.pstate, self.f_pos, self.f_ang, self.state_prev_pos,
-         self.state_prev_rot, aux) = self._step(
-            self.pstate, self.map.df, self.map.df_beam, *cloud,
-            put(op), put(orot),
-            self.state_prev_pos, self.state_prev_rot, self.f_pos, self.f_ang,
-            self.global_localization_fix_cnt > 0,
-            (p.std_warn_thresh_xy, p.std_warn_thresh_z, p.std_warn_thresh_yaw),
-            global_mode=global_mode,
-            global_slots=(global_slots(p, self._n_active_host)
-                          if global_mode else None),
-            occ=self.map.occ, normals=normals)
-        aux = to_host(aux)
+        return ((self.pstate, self.map.df, self.map.df_beam, *cloud,
+                 put(op), put(orot),
+                 self.state_prev_pos, self.state_prev_rot, self.f_pos,
+                 self.f_ang, self.global_localization_fix_cnt > 0,
+                 (p.std_warn_thresh_xy, p.std_warn_thresh_z,
+                  p.std_warn_thresh_yaw)),
+                dict(global_mode=global_mode,
+                     global_slots=(global_slots(p, self._n_active_host)
+                                   if global_mode else None),
+                     occ=self.map.occ, normals=normals))
+
+    def _publish(self, aux, t, t0) -> MeasureResult:
+        """The epilogue on the step's host ``aux`` (src/mcl_3dl.cpp:
+        853-897): status, rates, the published result, whose ``elapsed``
+        is the time since ``t0`` (the tracer's clock ``now``, ns), the
+        measurement's start."""
+        p = self.params
+        pts_ds = self._last_scan_base
         self.last_aux = aux
 
         if p.debug_finite_checks:
@@ -658,7 +712,7 @@ class MCL3DL:
         if aux["points_not_found"]:
             self.status.error = ErrorCode.POINTS_NOT_FOUND
             return MeasureResult(status=self.status,
-                                 elapsed=time.monotonic() - ts)
+                                 elapsed=(now() - t0) * 1e-9)
 
         # host-side epilogue (src/mcl_3dl.cpp:853-897)
         if aux["expanded"]:
@@ -713,7 +767,7 @@ class MCL3DL:
             expanded=bool(aux["expanded"]), converged=bool(aux["converged"]),
             large_std=bool(aux["large_std"]),
             particle_size=n_active, status=self.status,
-            elapsed=time.monotonic() - ts)
+            elapsed=(now() - t0) * 1e-9)
 
     def slots(self, global_mode: bool = False, global_slots=None):
         """``(like_slots, beam_slots, use_beam)`` of a step: the full
@@ -969,8 +1023,9 @@ class MCL3DL:
         """``_measurement_step``'s signature and outputs, from CUDA graphs
         where it can (``step_graph.run``; on the CPU, and for global-mode,
         batched, split and normal-sampler steps, ``_measurement_step``
-        itself)."""
-        return step_graph.run(self, *args, **kw)
+        itself), inside the span ``step``."""
+        with spans.span("step"):
+            return step_graph.run(self, *args, **kw)
 
     def _step_front(self, state: ParticleState, df, df_beam, cloud,
                     cloud_label, cloud_valid, origins,

@@ -21,7 +21,8 @@ tier-2 branch that needs no box check (``box_path`` false: trilinear
 sampling, a capacity that is no multiple of 128, the batched fleet)
 samples the field through kernel M4 (``sample_field``) on the card and
 reads nothing on the host; the box check (tiers 1 and 2 after a grouping
-that does not fit) reads its flags on the host.
+that does not fit) reads its flags on the host, each read a ``read.box``
+span (``profiling.spans``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from mcl_3dl_tpu_torch.math import f32
 from mcl_3dl_tpu_torch.math import quat as mq
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops.local_gather import local_score
+from mcl_3dl_tpu_torch.profiling import spans
 
 _BOX = (32, 32, 16)      # tier-1 box in (weighted-space) field cells
 
@@ -91,7 +93,9 @@ def grouped_like_inputs(df: DistanceField, stats, lo, points, valid,
 def grouped_like_apply(df: DistanceField, stats, layout, lo, points, valid, *,
                        match_dist_min, match_dist_flat, match_weight):
     """Tier 0: kernel K1 over the sorted layout, then the exact rescore of
-    the envelope outliers scattered over it."""
+    the envelope outliers scattered over it.  While the tracer is on
+    (``spans.enabled``, as it stands when a graph is captured), K1's live
+    tables are counted beside the launch (``og.count_live_tables``)."""
     trunc = float(df.trunc)
     meta, pfp, skipw, tables = grouped_like_inputs(df, stats, lo, points,
                                                    valid, match_dist_min)
@@ -99,6 +103,8 @@ def grouped_like_apply(df: DistanceField, stats, layout, lo, points, valid, *,
         layout.A, layout.tile_group, meta, pfp, skipw, tables,
         match_dist_min=match_dist_min, match_dist_flat=match_dist_flat,
         match_weight=match_weight, trunc=trunc)
+    if spans.enabled:
+        og.count_live_tables(layout.tile_group, skipw)
     score = s_sorted[layout.dest]
     mcount = m_sorted[layout.dest]
 
@@ -204,8 +210,9 @@ def likelihood_measure(df: DistanceField, pos, rot, points, valid,
         stats = og.group_stats(pos, rmat, rot, df.weights, float(df.cell),
                                df.origin, act)
         lo, fits_kg = og.group_boxes(stats, points, df.shape)
-        fits = bool(torch.all(fits_kg | ~valid[:, None])
-                    & (stats.n_over <= cap))
+        with spans.span("read.box"):
+            fits = bool(torch.all(fits_kg | ~valid[:, None])
+                        & (stats.n_over <= cap))
         grouped = (stats, og.build_layout(stats, cap) if fits else None,
                    lo, fits)
 
@@ -217,7 +224,9 @@ def likelihood_measure(df: DistanceField, pos, rot, points, valid,
     else:
         iq, lo, ext = box_queries(df, pos, rmat, points)
         box = torch.tensor(_BOX, dtype=torch.int32, device=pos.device)
-        if bool(torch.all((ext < box) | ~valid[:, None])):
+        with spans.span("read.box"):
+            in_box = bool(torch.all((ext < box) | ~valid[:, None]))
+        if in_box:
             tables, lidx = box_tables(df, iq, lo, valid)
             score, mcount = local_score(tables, lidx, **kw)
             tier = TIER_BOX

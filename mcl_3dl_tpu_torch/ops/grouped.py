@@ -24,7 +24,10 @@ package's untaken ``lax.cond`` branch); it is kept for the shapes.
 Kernel wrappers take the kernel for CUDA tensors, through its operator
 (``csrc/ops.cpp``, which checks the tensors), and the plain version
 (a vectorized restatement with the same f32 op sequence and the same
-sequential accumulation order) for CPU tensors.
+sequential accumulation order) for CPU tensors.  ``count_live_tables``
+adds a K1 launch's live (point, bin) tables to a device counter,
+``grouped_like_score.live_tables``; the likelihood path calls it beside
+its K1 launch while the tracer is on, so the wrapper times K1 alone.
 """
 
 from __future__ import annotations
@@ -450,6 +453,32 @@ def grouped_like_score(gp_A, tile_group, meta, pts_fp, skipw, tables, *,
 
 
 grouped_like_score.launches = 0
+grouped_like_score.live_tables = None
+
+
+def live_tables(tile_group, skipw):
+    """The (point, bin) tables K1 does not skip, as a 0-dim i64 device
+    tensor: the bin holds tiles (``tile_group``) and the point's skip word
+    there (``skipw [K, G]``) is not ``SKIP_ALL``, the kernel's own rule."""
+    held = torch.zeros(skipw.shape[1], dtype=torch.bool,
+                       device=skipw.device).index_fill_(
+                           0, tile_group.to(torch.int64), True)
+    return ((skipw != SKIP_ALL) & held).sum()
+
+
+def count_live_tables(tile_group, skipw):
+    """Add a K1 launch's ``live_tables`` to ``grouped_like_score.
+    live_tables``, a 0-dim i64 tensor on the launch's device: on the
+    device, with no host read, inside a captured graph too (each replay
+    adds).  The counter is made by the device's first count outside a
+    capture; a graph captured before that counts nothing."""
+    count = grouped_like_score.live_tables
+    if count is None or count.device != skipw.device:
+        if skipw.is_cuda and torch.cuda.is_current_stream_capturing():
+            return
+        count = grouped_like_score.live_tables = torch.zeros(
+            (), dtype=torch.int64, device=skipw.device)
+    count.add_(live_tables(tile_group, skipw))
 
 
 def beam_pen_plain(gp_A, tile_group, meta, pts_fp, aux, skip, tables, *,

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from mcl_3dl_tpu_torch.engine import StepDraws, resolve_device
+from mcl_3dl_tpu_torch.profiling import spans
 from mcl_3dl_tpu_torch.shard import Shard
 from mcl_3dl_tpu_torch.state import ParticleState
 
@@ -272,6 +273,9 @@ def fleet_filter_step_grouped(engine, mesh: Optional[Mesh] = None):
     all.  Robot ``i``'s outputs are the single-robot step's on
     its state and draws, bit for bit.  The working set is one robot's.
     Without a mesh this process runs every robot it is given.
+    A call is one request of ``profiling.spans``, ``fleet_step``: each
+    robot's ``fleet.draws`` and step spans carry its index in the whole
+    fleet, then ``fleet.stack``.
     Raises on a particles axis other than 1 (build the mesh with
     ``make_mesh(n, robots=n)``)."""
     mesh = mesh or Mesh.local(engine.device)
@@ -286,25 +290,35 @@ def fleet_filter_step_grouped(engine, mesh: Optional[Mesh] = None):
              odom_pos, odom_rot, prev_pos, prev_rot, f_pos_b, f_ang_b,
              is_global_fix, std_warn_thresh=None, draws=None, *, occ=None,
              normals=None):
-        n_robots, cap = state_b.pos.shape[:2]
-        r0 = mesh.robot_index * n_robots
-        thr = _thresholds(engine, std_warn_thresh)
-        gfix = torch.as_tensor(is_global_fix).expand(n_robots)
-        outs = []
-        for i in range(n_robots):
-            d = (_robot(draws, i) if draws is not None
-                 else draw(r0 + i, cloud[i], cloud_valid[i], cap))
-            outs.append(engine._step(
-                _robot(state_b, i), df, df_beam, cloud[i], cloud_label[i],
-                cloud_valid[i], origins[i], odom_pos[i], odom_rot[i],
-                prev_pos[i], prev_rot[i], _robot(f_pos_b, i),
-                _robot(f_ang_b, i), gfix[i], thr, d, occ=occ,
-                normals=_robot(normals, i)))
-        dev = cloud.device
-        state, f_pos, f_ang, pp, pr = (_stack([o[k] for o in outs], dev)
-                                       for k in range(5))
-        aux = {k: _stack([o[5][k] for o in outs], dev) for k in outs[0][5]}
-        return state, f_pos, f_ang, pp, pr, aux
+        with spans.request("fleet_step"):
+            n_robots, cap = state_b.pos.shape[:2]
+            r0 = mesh.robot_index * n_robots
+            thr = _thresholds(engine, std_warn_thresh)
+            gfix = torch.as_tensor(is_global_fix).expand(n_robots)
+            outs = []
+            try:
+                for i in range(n_robots):
+                    spans.robot = r0 + i
+                    if draws is not None:
+                        d = _robot(draws, i)
+                    else:
+                        with spans.span("fleet.draws"):
+                            d = draw(r0 + i, cloud[i], cloud_valid[i], cap)
+                    outs.append(engine._step(
+                        _robot(state_b, i), df, df_beam, cloud[i],
+                        cloud_label[i], cloud_valid[i], origins[i],
+                        odom_pos[i], odom_rot[i], prev_pos[i], prev_rot[i],
+                        _robot(f_pos_b, i), _robot(f_ang_b, i), gfix[i], thr,
+                        d, occ=occ, normals=_robot(normals, i)))
+            finally:
+                spans.robot = None
+            dev = cloud.device
+            with spans.span("fleet.stack"):
+                state, f_pos, f_ang, pp, pr = (
+                    _stack([o[k] for o in outs], dev) for k in range(5))
+                aux = {k: _stack([o[5][k] for o in outs], dev)
+                       for k in outs[0][5]}
+            return state, f_pos, f_ang, pp, pr, aux
 
     return step
 

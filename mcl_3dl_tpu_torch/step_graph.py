@@ -44,10 +44,20 @@ many times each counted kernel (``KERNELS``) launched inside it and every
 replay adds that to the wrappers' counts; a capture itself counts none.
 Every step adds one to the engine's ``step_routes`` under its route
 (``ROUTES``).
+
+Spans (``profiling.spans``), inside the engine's ``step`` span around
+``run``: ``step.eager`` (route ``eager``), ``step.warm_up``
+(``warm_up``), or ``step.draws``, ``step.load`` (the copy into the
+static buffers), ``step.replay_a`` (with ``step.capture_a`` at a key's
+first replay), ``read.fits``, then ``step.replay_b`` (with
+``step.capture_b``) or ``step.remainder`` (the eager B of
+``graph_front``), and ``step.copy_out``.  A capture also counts the
+caching allocator's retries and reserved bytes added across it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -57,6 +67,7 @@ from mcl_3dl_tpu_torch.models.beam import march_dda, march_fixed, march_sphere
 from mcl_3dl_tpu_torch.models.likelihood import box_path
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops import local_gather as olg
+from mcl_3dl_tpu_torch.profiling import spans
 
 # the launch-counted kernel wrappers: K1, K2, K3, M1-M4
 KERNELS = (og.grouped_like_score, og.grouped_beam_pen, olg.local_score,
@@ -186,6 +197,7 @@ class StepGraph:
 
     def __init__(self, df, df_beam, device):
         self.maps = (df, df_beam)      # kept: the graphs read their tensors
+        self.device = torch.device(device)
         self.pool = new_pool(device)
         self.inputs: Optional[StepInputs] = None
         self.graph_a = self.front = self.launches_a = None
@@ -201,9 +213,10 @@ class StepGraph:
         copy_into(self.inputs, inputs)
         return self.inputs
 
-    def _capture(self, fn):
+    def _capture(self, fn, name):
         before = launch_counts()
-        graph, out = capture(fn, self.pool)
+        with spans.span(name), _allocator_deltas(self.device):
+            graph, out = capture(fn, self.pool)
         held = [a - b for a, b in zip(launch_counts(), before)]
         for k, n in zip(KERNELS, before):
             k.launches = n             # a capture launches nothing
@@ -217,17 +230,20 @@ class StepGraph:
 
     def replay_front(self, fn):
         if self.graph_a is None:
-            self.graph_a, self.front, self.launches_a = self._capture(fn)
+            self.graph_a, self.front, self.launches_a = self._capture(
+                fn, "step.capture_a")
         self._replay(self.graph_a, self.launches_a)
         return self.front
 
     def replay_back(self, outcome, fn):
-        """The outcome's B outputs, copied out of the graph's buffers."""
+        """The outcome's B outputs, in the graph's buffers (the next
+        replay overwrites them)."""
         back = self.backs.get(outcome)
         if back is None:
-            back = self.backs[outcome] = BackGraph(*self._capture(fn))
+            back = self.backs[outcome] = BackGraph(
+                *self._capture(fn, "step.capture_b"))
         self._replay(back.graph, back.launches)
-        return tree_map(torch.clone, back.out)
+        return back.out
 
 
 class BackGraph(NamedTuple):
@@ -236,6 +252,27 @@ class BackGraph(NamedTuple):
     graph: object
     out: tuple
     launches: list
+
+
+@contextlib.contextmanager
+def _allocator_deltas(device):
+    """Counters ``graph.alloc_retries`` and ``graph.reserved_bytes``: what
+    the caching allocator's ``num_alloc_retries`` and reserved bytes
+    gained across the block, on a CUDA device while the tracer is on."""
+    if not (spans.enabled and device.type == "cuda"):
+        yield
+        return
+
+    def read():
+        m = torch.cuda.memory_stats()
+        return (m.get("num_alloc_retries", 0),
+                m.get("reserved_bytes.all.current", 0))
+
+    before = read()
+    yield
+    after = read()
+    spans.count("graph.alloc_retries", after[0] - before[0])
+    spans.count("graph.reserved_bytes", after[1] - before[1])
 
 
 def _device_bool(x, device) -> torch.Tensor:
@@ -256,14 +293,16 @@ def run(engine, state, df, df_beam, cloud, cloud_label, cloud_valid,
             engine, global_mode=global_mode, normals=normals,
             spmd_safe=spmd_safe, shard=shard)):
         routes["eager"] += 1
-        return engine._measurement_step(
-            state, df, df_beam, cloud, cloud_label, cloud_valid, origins,
-            odom_pos, odom_rot, prev_pos, prev_rot, f_pos, f_ang,
-            is_global_fix, std_warn_thresh, draws, global_mode=global_mode,
-            global_slots=global_slots, occ=occ, normals=normals,
-            spmd_safe=spmd_safe, shard=shard)
+        with spans.span("step.eager"):
+            return engine._measurement_step(
+                state, df, df_beam, cloud, cloud_label, cloud_valid, origins,
+                odom_pos, odom_rot, prev_pos, prev_rot, f_pos, f_ang,
+                is_global_fix, std_warn_thresh, draws,
+                global_mode=global_mode, global_slots=global_slots, occ=occ,
+                normals=normals, spmd_safe=spmd_safe, shard=shard)
     if draws is None:
-        draws = engine.draw_step(*engine.keeps(cloud, cloud_valid))
+        with spans.span("step.draws"):
+            draws = engine.draw_step(*engine.keeps(cloud, cloud_valid))
     use_beam = engine.slots()[2]
     key = step_key(state, cloud, origins, draws, use_beam, std_warn_thresh,
                    df, df_beam)
@@ -284,24 +323,34 @@ def run(engine, state, df, df_beam, cloud, cloud_label, cloud_valid,
 
     entry = engine._graphs.get(key)
     if entry is None:
-        entry = engine._graphs[key] = StepGraph(df, df_beam, state.device)
-        fr = front(given)
-        fits = fr.fits()
-        if back_graphable(engine, state, df, fr, fits):
-            entry.warm.add(tuple(fits))
-        routes["warm_up"] += 1
-        return back(fr, fits, given)
+        with spans.span("step.warm_up"):
+            entry = engine._graphs[key] = StepGraph(df, df_beam,
+                                                    state.device)
+            fr = front(given)
+            fits = fr.fits()
+            if back_graphable(engine, state, df, fr, fits):
+                entry.warm.add(tuple(fits))
+            routes["warm_up"] += 1
+            return back(fr, fits, given)
 
-    static = entry.load(given)
-    fr = entry.replay_front(lambda: front(static))
+    with spans.span("step.load"):
+        static = entry.load(given)
+    with spans.span("step.replay_a"):
+        fr = entry.replay_front(lambda: front(static))
     fits = fr.fits()
     outcome = tuple(fits)
     if back_graphable(engine, state, df, fr, fits):
         if outcome in entry.warm:
             routes["graph"] += 1
-            return entry.replay_back(outcome,
-                                     lambda: back(fr, fits, static))
+            with spans.span("step.replay_b"):
+                out = entry.replay_back(outcome,
+                                        lambda: back(fr, fits, static))
+            with spans.span("step.copy_out"):
+                return tree_map(torch.clone, out)
         entry.warm.add(outcome)
     routes["graph_front"] += 1
+    with spans.span("step.remainder"):
+        out = back(fr, fits, given)
     # copied: some outputs (``aux["points_not_found"]``) are graph A's
-    return tree_map(torch.clone, back(fr, fits, given))
+    with spans.span("step.copy_out"):
+        return tree_map(torch.clone, out)

@@ -24,13 +24,16 @@ LIBDIRS = ["/t/lib", "/cuda/lib64"]
 
 @pytest.fixture
 def fake_tools(monkeypatch, tmp_path):
-    """Fake compilers and torch paths; the build root under ``tmp_path``."""
+    """Fake compilers and torch paths; the build root under ``tmp_path``;
+    no build timed yet (a map built earlier in this process leaves its
+    ``seconds["map"]``)."""
     monkeypatch.setattr(build, "_nvcc", lambda: "/cuda/bin/nvcc")
     monkeypatch.setattr(build, "_host_cxx", lambda: "/usr/bin/g++")
     monkeypatch.setattr(build, "_torch_paths", lambda: (INCLUDES, LIBDIRS))
     monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "torch_kernels")
     monkeypatch.setattr(build, "_lib", None)
     monkeypatch.setattr(build, "_ops", {})
+    monkeypatch.setattr(build, "seconds", {})
     return tmp_path
 
 

@@ -8,7 +8,9 @@ plain versions everywhere.  The tier-2 kernels M2-M4 (``march_sphere``,
 on the flagship world's maps, with and without the plain loops' early
 exit; the tier-2 models run under ``torch.cuda.set_sync_debug_mode
 ("error")`` (no host read); under ``torch.func.vmap`` each launches once
-and gives every robot's bits.
+and gives every robot's bits.  K1's live-table counter, made beside the
+likelihood path's K1 launch, adds a launch's live tables eagerly and at
+every replay of a graph that holds it.
 
 Skipped without a CUDA device.  On the card, with no JAX installed:
 
@@ -22,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from mcl_3dl_tpu_torch import worlds
+from mcl_3dl_tpu_torch import step_graph, worlds
 from mcl_3dl_tpu_torch.config import BeamParams, Params
 from mcl_3dl_tpu_torch.engine import dda_num_steps, sphere_num_steps
 from mcl_3dl_tpu_torch.map.distance_field import (build_distance_field,
@@ -35,12 +37,14 @@ from mcl_3dl_tpu_torch.models.beam import (BeamVirtualPoints, beam_measure,
                                            march_sphere, raycast_df,
                                            raycast_occ)
 from mcl_3dl_tpu_torch.models.likelihood import (box_queries, box_tables,
+                                                 grouped_like_apply,
                                                  grouped_like_inputs,
                                                  likelihood_measure)
 from mcl_3dl_tpu_torch.ops import build
 from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops import gather_bench as ogb
 from mcl_3dl_tpu_torch.ops import local_gather as olg
+from mcl_3dl_tpu_torch.profiling import spans
 from mcl_3dl_tpu_torch.tools import (exp_gather, exp_gather2, exp_rowsel_shape,
                                      gather_pairs, to_device)
 
@@ -101,6 +105,44 @@ def test_like_kernel_matches_plain(cuda):
     for a, b in zip(got, want):
         assert torch.equal(a[keep], b[keep])
     assert float(got[1][keep].sum()) > 0
+
+
+def test_like_live_tables_count_eager_and_replayed(cuda, monkeypatch):
+    """K1's live-table counter (``grouped_like_score.live_tables``), added
+    beside the likelihood path's K1 launch (``grouped_like_apply``): one
+    eager call and ``replays`` replays of a graph holding the call add
+    (1 + replays) times a brute count of the launch's live tables, and
+    ``launches`` as many."""
+    replays = 5
+    monkeypatch.setattr(spans, "enabled", True)
+    k1 = og.grouped_like_score
+    monkeypatch.setattr(k1, "live_tables", None)
+    df, scan, stats, layout = _cloud(cuda, 5)
+    valid = torch.ones(scan.shape[0], dtype=torch.bool, device=cuda)
+    lo, fits = og.group_boxes(stats, scan, df.shape)
+    assert bool(fits.all())
+    skipw = grouped_like_inputs(df, stats, lo, scan, valid, MDM)[2].cpu()
+    held = set(layout.tile_group.tolist())
+    brute = sum(int(skipw[k, g]) != og.SKIP_ALL
+                for k in range(skipw.shape[0]) for g in held)
+    assert brute > 0
+
+    def run():
+        return grouped_like_apply(df, stats, layout, lo, scan, valid,
+                                  match_dist_min=MDM, match_dist_flat=MDF,
+                                  match_weight=MW)
+
+    n0 = k1.launches
+    want = run()
+    graphs = step_graph.StepGraph(df, None, cuda)
+    for _ in range(replays):
+        got = graphs.replay_front(run)
+    torch.cuda.synchronize()
+    assert k1.launches == n0 + 1 + replays
+    assert k1.live_tables.device == scan.device
+    assert int(k1.live_tables) == (1 + replays) * brute
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("slots", [8, 16, 32, 64, 96])
