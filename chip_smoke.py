@@ -25,8 +25,10 @@ time):
    measurement goes through ``MCL3DL._step`` (``step_graph.py``: CUDA
    graphs of the step, replayed at tiers 0/0; the other steps run the rest
    eagerly), and the route of each is printed.  Kernel launch counts (K1,
-   K2, K3 and M1, the fixed march; M2-M4 beside them) are zeroed right
-   before the drive and read right after it;
+   K2, K3 and M1, the fixed march; M5, the grouping statistics, which
+   must have launched once a measurement, every one being grouped at this
+   capacity; M2-M4 beside them) are zeroed right before the drive and
+   read right after it;
 4. each kernel against its plain PyTorch version on the card at the main
    path's shapes (inputs from the drive's last state): bit-equal on every
    slot whose value the caller keeps, then timed beside its bound, with
@@ -34,7 +36,11 @@ time):
    (1000 back-to-back calls); K3 also at the edges of its forms (N 128
    with K 1, N 384 with K 96, and the 1M case through a lidx view that
    is not 16-byte aligned), bit-equal; M1 on the 65,536 x 3 overflow rays
-   of the drive's last state; the tier-2 kernels on the last state's
+   of the drive's last state; M5 (``group_stats``) on the last state's
+   1,048,576 particles at the 24x2x2 grid against ``group_stats_plain``
+   (``m5_row``: ``A`` bit-equal, ``g`` on >= 99.9% of particles, the
+   bounds to rtol 1e-5, ``n_over`` within 0.1% of N; bound 117 B a
+   particle); the tier-2 kernels on the last state's
    whole tier-2 working set (``tools/grouped_pairs.tier2_cases``): M4 at
    1,048,576 x 96 queries, trilinear and nearest, beside
    ``torch.nn.functional.grid_sample``, and M2 and M3 on the 1,048,576 x
@@ -740,6 +746,50 @@ def tier1_split(eng, inp, k3_ms):
             lambda: box_tables(df, iq, lo, inp.like_valid), 5),
         "K3 local_score": k3_ms,
     }
+
+
+M5_SRC = ("mcl_3dl_tpu_torch/csrc/group_stats.cu",
+          "none: left to XLA, mcl_3dl_tpu/ops/grouped.py:140 (group_stats)")
+
+
+def m5_row(results, card, eng, inp, launches_n):
+    """Phase 4's M5 row: ``group_stats`` on the engine's state (the bins
+    of the main path, 24x2x2) against ``group_stats_plain`` on the card,
+    held as the card tests hold it, then timed beside its bound (117 B a
+    particle: pos, rot, the rotation matrix and the mask in, g and A
+    out)."""
+    import torch
+    from mcl_3dl_tpu_torch.ops import grouped as og
+    from mcl_3dl_tpu_torch.tools import bound, split, time_ms
+    from mcl_3dl_tpu_torch.tools import grouped_pairs as gp
+
+    st, df = eng.pstate, eng.map.df
+    args = (st.pos, inp.rmat, st.rot, df.weights, float(df.cell), df.origin,
+            st.active_mask())
+    n = st.pos.shape[0]
+    got = og.group_stats(*args)
+    want = og.group_stats_plain(*args)
+    torch.cuda.synchronize()
+    agree, gap = gp.stats_agreement(got, want, n)
+    over = (int(got.n_over), int(want.n_over))
+    again = og.group_stats(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "group_stats: two calls differ"
+    ms = time_ms(lambda: og.group_stats(*args), 25)
+    dev_ms, host_ms = split(lambda: og.group_stats(*args))
+    plain_ms = time_ms(lambda: og.group_stats_plain(*args), 3)
+    bound_ms, by = bound(117 * n)
+    results.append(dict(name="group_stats", route="cuda", source=M5_SRC[0],
+                        replaces=M5_SRC[1], launches=launches_n,
+                        g_agree=agree, bounds_max_abs_err=gap, n_over=over,
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=by, library_ms=None))
+    print(f"phase 4 group_stats (M5) at {n} x {og.G_SPLIT} bins: A bit-equal,"
+          f" g equal on {agree:.6f}, bounds within {gap:.2e}, n_over "
+          f"{over[0]} (plain {over[1]}), the same bits twice; {ms:.4f} ms "
+          f"(device {dev_ms:.4f} + host {host_ms:.4f} a call; bound "
+          f"{bound_ms:.4f} ms by {by}), plain {plain_ms:.2f} ms, launches "
+          f"{launches_n} {card}", flush=True)
 
 
 def kernel_rows(report_fn, inp, launches, suffix, phase):
@@ -1491,7 +1541,8 @@ def main() -> int:
     origin = np.array([0.0, 0.0, worlds.SENSOR_Z])
     ident = np.array([0.0, 0.0, 0.0, 1.0])
     kernels = {"like": og.grouped_like_score, "beam": og.grouped_beam_pen,
-               "local": olg.local_score, "march": march_fixed}
+               "local": olg.local_score, "march": march_fixed,
+               "stats": og.group_stats}
     tier2 = tier2_kernels()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1516,6 +1567,8 @@ def main() -> int:
     assert (steps[-1][1], steps[-1][2]) == (0, 0), "not at tiers 0/0"
     assert steps[-1][4] == "graph", "the last step did not replay both graphs"
     assert all(n > 0 for n in launches.values()), launches
+    # every measurement at this capacity is grouped: one M5 launch each
+    assert launches["stats"] == len(steps), (launches, len(steps))
     for key in ("e_pos", "e_rot", "pub_pos", "pub_rot", "cov", "entropy",
                 "match_ratio_min", "match_ratio_max"):
         assert np.isfinite(np.asarray(eng.last_aux[key], np.float64)).all(), key
@@ -1567,6 +1620,9 @@ def main() -> int:
                 lambda: march_fixed.plain(*m1_args), *m1_bound,
                 launches["march"], m1_kept)
     del m1_args
+
+    # M5 at the last state's 1,048,576 particles and 96 bins
+    m5_row(results, card, eng, inp, launches["stats"])
 
     # M2-M4 on the last state's whole tier-2 working set: 1M x 96 queries,
     # 1M x 3 rays (launches set from their drives' counts below)

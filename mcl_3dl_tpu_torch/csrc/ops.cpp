@@ -1,5 +1,5 @@
 // The kernels' binding to PyTorch: one operator a C entry point of
-// grouped.cu, local_gather.cu, beam_march.cu, tier2.cu and
+// grouped.cu, local_gather.cu, beam_march.cu, tier2.cu, group_stats.cu and
 // gather_bench.cu, registered with torch's dispatcher for CUDA tensors.
 //
 // Host-only C++: built with the host compiler against torch's headers and
@@ -61,6 +61,14 @@ int mcl_march_dda(const float*, const float*, const float*, const bool*,
                   const float*, bool*, float*, int64_t, int, int, int, int,
                   int, float, float, int64_t, float, float, int,
                   cudaStream_t);
+int mcl_group_stats(const float*, const float*, const float*, const bool*,
+                    const float*, int32_t*, float*, float*, float*, bool*,
+                    int32_t*, float*, int64_t, int, int, int, float, float,
+                    float, float, float, float, float, float, float,
+                    cudaStream_t);
+int64_t mcl_group_stats_smem(int);
+int mcl_group_stats_smem_limit();
+int64_t mcl_group_stats_scratch(int64_t, int);
 int mcl_row_gather(const void*, const int*, void*, int, int, int, int,
                    cudaStream_t);
 int mcl_flat_gather(const float*, const int*, float*, int, int, int, int,
@@ -429,6 +437,62 @@ std::tuple<Tensor, Tensor> march_dda(
   return {found, cpos};
 }
 
+// ---- M5 (group_stats.cu)
+
+// pos [N, 3], rot_mat [N, 3, 3], rot [N, 4] f32, active [N] bool, origin
+// [3] f32 (read on the device); the bin grid g_yaw x g_pitch x g_roll.
+// Returns g [N] i32, A [N, 12] f32, a_min and a_max [G + 1, 12] f32,
+// any_active [G + 1] bool and n_over [] i32; the scratch is the call's own
+std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor> group_stats(
+    const Tensor& pos, const Tensor& rot_mat, const Tensor& rot,
+    const Tensor& active, const Tensor& origin, int64_t g_yaw,
+    int64_t g_pitch, int64_t g_roll, double wx, double wy, double wz,
+    double inv_cell, double floor_ang, double floor_pos, double trim,
+    double sigma, double eps) {
+  const int64_t n = dim0(pos, 0);
+  const c10::Device dev = pos.device();
+  const Shape s_pos{n, 3}, s_rm{n, 3, 3}, s_rot{n, 4}, s_n{n}, s_org{3};
+  check(pos, "pos", F32, &s_pos, &dev);
+  check(rot_mat, "rot_mat", F32, &s_rm, &dev);
+  check(rot, "rot", F32, &s_rot, &dev);
+  check(active, "active", BOOL, &s_n, &dev);
+  check(origin, "origin", F32, &s_org, &dev);
+  TORCH_CHECK_VALUE(n > 0, "group_stats needs at least one particle");
+  TORCH_CHECK_VALUE(g_yaw >= 1 && (g_pitch == 1 || g_pitch == 2) &&
+                        (g_roll == 1 || g_roll == 2),
+                    "the bin grid must be >= 1 x (1 or 2) x (1 or 2), got ",
+                    g_yaw, "x", g_pitch, "x", g_roll);
+  const int groups = i32(g_yaw * g_pitch * g_roll, "bins");
+  c10::cuda::CUDAGuard guard(dev);
+  const int64_t need = mcl_group_stats_smem(groups);
+  const int limit = mcl_group_stats_smem_limit();
+  TORCH_CHECK_VALUE(need <= limit, "group_stats: the ", g_yaw, "x", g_pitch,
+                    "x", g_roll, " bin grid's accumulators need ", need,
+                    " bytes of shared memory a block, more than the "
+                    "device's ", limit);
+  Tensor g = at::empty({n}, pos.options().dtype(I32));
+  Tensor A = at::empty({n, 12}, pos.options());
+  Tensor a_min = at::empty({groups + 1, 12}, pos.options());
+  Tensor a_max = at::empty({groups + 1, 12}, pos.options());
+  Tensor any_active = at::empty({groups + 1}, pos.options().dtype(BOOL));
+  Tensor n_over = at::empty({}, pos.options().dtype(I32));
+  Tensor scratch =
+      at::empty({mcl_group_stats_scratch(n, groups)}, pos.options());
+  launched(mcl_group_stats(ptr<const float>(pos), ptr<const float>(rot_mat),
+                           ptr<const float>(rot), ptr<const bool>(active),
+                           ptr<const float>(origin), ptr<int32_t>(g),
+                           ptr<float>(A), ptr<float>(a_min),
+                           ptr<float>(a_max), ptr<bool>(any_active),
+                           ptr<int32_t>(n_over), ptr<float>(scratch), n,
+                           i32(g_yaw, "g_yaw"), i32(g_pitch, "g_pitch"),
+                           i32(g_roll, "g_roll"), (float)wx, (float)wy,
+                           (float)wz, (float)inv_cell, (float)floor_ang,
+                           (float)floor_pos, (float)trim, (float)sigma,
+                           (float)eps, stream_of(pos)),
+           "mcl_group_stats");
+  return {g, A, a_min, a_max, any_active, n_over};
+}
+
 // ---- G1-G10 (gather_bench.cu)
 
 // (a) G1, G2, G4: tab [rows, width] of `dtype`, idx [rows, 128] i32
@@ -548,6 +612,11 @@ MCL_LIBRARY(MCL_OPS_NS, m) {
         "Tensor min_label, Tensor rep_point, Tensor origin, int num_steps, "
         "float step, float cell, int label_max, float ray_angle_half, "
         "float min_dist_thr_sq, bool refine) -> (Tensor, Tensor)");
+  m.def("group_stats(Tensor pos, Tensor rot_mat, Tensor rot, "
+        "Tensor active, Tensor origin, int g_yaw, int g_pitch, int g_roll, "
+        "float wx, float wy, float wz, float inv_cell, float floor_ang, "
+        "float floor_pos, float trim, float sigma, float eps) -> "
+        "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
   m.def("row_gather(Tensor tab, Tensor idx, int off, int width, "
         "ScalarType dtype) -> Tensor");
   m.def("flat_gather(Tensor tab, Tensor idx, int off, int shared) -> Tensor");
@@ -564,6 +633,7 @@ MCL_LIBRARY_IMPL(MCL_OPS_NS, CUDA, m) {
   m.impl("sample_field", &sample_field);
   m.impl("march_sphere", &march_sphere);
   m.impl("march_dda", &march_dda);
+  m.impl("group_stats", &group_stats);
   m.impl("row_gather", &row_gather);
   m.impl("flat_gather", &flat_gather);
   m.impl("col_gather", &col_gather);

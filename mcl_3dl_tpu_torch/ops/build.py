@@ -45,7 +45,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("grouped.cu", "local_gather.cu", "beam_march.cu", "tier2.cu",
-           "gather_bench.cu")
+           "group_stats.cu", "gather_bench.cu")
 HEADERS = ("field.cuh",)
 BINDING = "ops.cpp"
 # operator -> how many leading tensor arguments hold its rays or queries

@@ -1,5 +1,6 @@
 """Pose-grouped, z-lane local-table scoring: the fast path of both
-measurement models, and kernels K1 and K2 (``csrc/grouped.cu``).
+measurement models, kernels K1 and K2 (``csrc/grouped.cu``), and kernel
+M5 (``csrc/group_stats.cu``), the grouping statistics.
 
 Particles are counting-sorted into ``G_YAW x G_PITCH x G_ROLL`` pose bins
 plus one outlier/inactive bin, in 1024-slot tiles.  Within a bin every
@@ -113,8 +114,35 @@ def _nanmedian_rows(x, empty):
 
 
 def group_stats(pos, rot_mat, rot, weights3, cell, origin3, active) -> GroupStats:
-    """Bin particles on (yaw, pitch, roll) and bound each bin's
-    coefficients.
+    """M5: bin particles on (yaw, pitch, roll) and bound each bin's
+    coefficients (``group_stats_plain`` says how).
+
+    ``pos [N, 3]``, ``rot_mat [N, 3, 3]``, ``rot [N, 4]`` f32, ``active
+    [N]`` bool, ``origin3 [3]`` f32 on the particles' device; the bin grid
+    is this module's ``G_YAW x G_PITCH x G_ROLL``.  A CUDA tensor launches
+    the kernel (``csrc/group_stats.cu``) through its operator, with no
+    host read, and counts one launch; a CPU tensor takes the plain
+    version."""
+    if not pos.is_cuda:
+        return group_stats_plain(pos, rot_mat, rot, weights3, cell, origin3,
+                                 active)
+    w = [f32(float(x)) for x in weights3]
+    out = build.op("group_stats")(
+        pos.contiguous(), rot_mat.contiguous(), rot.contiguous(),
+        active.contiguous(), origin3.contiguous(), G_YAW, G_PITCH, G_ROLL,
+        *w, f32(1.0 / cell), f32(ENV_FLOOR_ANG), ENV_FLOOR_POS,
+        ENV_SIGMA_TRIM, ENV_SIGMA, f32(_ENV_EPS))
+    group_stats.launches += 1
+    return GroupStats(*out)
+
+
+group_stats.launches = 0
+
+
+def group_stats_plain(pos, rot_mat, rot, weights3, cell, origin3,
+                      active) -> GroupStats:
+    """Plain version of M5: bin particles on (yaw, pitch, roll) and bound
+    each bin's coefficients.
 
     Envelope: per-bin ``mean +/- max(ENV_SIGMA * std, floor)`` clipped to
     the wider of the inliers' true min/max and the floor band, in two

@@ -69,9 +69,9 @@ from mcl_3dl_tpu_torch.ops import grouped as og
 from mcl_3dl_tpu_torch.ops import local_gather as olg
 from mcl_3dl_tpu_torch.profiling import spans
 
-# the launch-counted kernel wrappers: K1, K2, K3, M1-M4
+# the launch-counted kernel wrappers: K1, K2, K3, M1-M5
 KERNELS = (og.grouped_like_score, og.grouped_beam_pen, olg.local_score,
-           march_fixed, march_sphere, march_dda, sample_field)
+           march_fixed, march_sphere, march_dda, sample_field, og.group_stats)
 # "graph": A and a B replayed; "graph_front": A replayed, the rest eager;
 # "warm_up": the first step at a key, eager; "eager": not graphable
 ROUTES = ("graph", "graph_front", "warm_up", "eager")

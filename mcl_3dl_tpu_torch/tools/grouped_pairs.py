@@ -28,6 +28,9 @@ device time of a call and the host time of a call (``tools.host_ms``,
 once), and whether the build's output equals the plain version on the
 slots the caller keeps (a build that skips its lookups does not).  Every line carries the card's ``nvidia-smi`` name and
 power limit.
+
+``stats_agreement`` holds kernel M5's grouping statistics to their plain
+version's (``chip_smoke.py`` phase 4 and the card tests).
 """
 
 from __future__ import annotations
@@ -191,6 +194,28 @@ def local_case(df, lp, pos, rmat, points, valid):
     nbytes = tables.numel() * 4 + lidx.numel() * 4 + 2 * n * 4
     return ((tables, lidx), kw, (nbytes, lidx.numel() * 8),
             torch.arange(n, device=lidx.device))
+
+
+def stats_agreement(got, want, n):
+    """M5's ``GroupStats`` (``got``) against its plain version's
+    (``want``) on the same ``n`` particles: ``(share of g equal, largest
+    gap of the bounds)``.  Raises ``AssertionError`` unless shapes and
+    dtypes match, ``A`` is bit-equal, ``g`` is equal on >= 99.9% of
+    particles (sums in another order, libm ulps at bin edges), the bounds
+    are within rtol 1e-5 (atol 1e-5 cells, for a bound near 0),
+    ``any_active`` is equal and ``n_over`` within 0.1% of ``n``."""
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
+    assert torch.equal(got.A, want.A), "group_stats: A != plain"
+    agree = float((got.g == want.g).float().mean())
+    assert agree >= 0.999, agree
+    bounds = ((got.a_min, want.a_min), (got.a_max, want.a_max))
+    for a, b in bounds:
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.any_active, want.any_active)
+    assert abs(int(got.n_over) - int(want.n_over)) <= 0.001 * n, (
+        int(got.n_over), int(want.n_over))
+    return agree, max(float((a - b).abs().max()) for a, b in bounds)
 
 
 def march_case(eng, inp):

@@ -110,18 +110,77 @@ def _unpack(case):
     return np.random.default_rng(11), df, scan, N, pos, rot, js
 
 
-def test_group_stats_matches_jax(case):
-    rng, df, scan, N, pos, rot, js = _unpack(case)
+def _port_stats(case):
+    """The port's ``group_stats`` on the case's particles (CPU tensors:
+    the plain version)."""
+    rng, df, scan, N, pos, rot, _ = _unpack(case)
     pos_t, rot_t = _t(pos), _t(rot)
     rmat = tq.rotation_matrix(tq.normalize(rot_t))
-    ts = og.group_stats(pos_t, rmat, rot_t, df.weights, float(df.cell),
-                        _t(df.origin), torch.ones(N, dtype=torch.bool))
+    return og.group_stats(pos_t, rmat, rot_t, df.weights, float(df.cell),
+                          _t(df.origin), torch.ones(N, dtype=torch.bool))
+
+
+def _stats_match(case, ts, js):
     agree = np.mean(ts.g.numpy() == np.asarray(js.g))
     assert agree >= 0.999, agree
     np.testing.assert_allclose(ts.A.numpy(), np.asarray(js.A), rtol=1e-6,
                                atol=1e-4)
     if case[0] == "outliers":
         assert int(js.n_over) > 0 and int(ts.n_over) > 0
+
+
+def test_group_stats_matches_jax(case):
+    _stats_match(case, _port_stats(case), _unpack(case)[-1])
+
+
+FLEET_GRID = (6, 1, 1)       # the fleet cell's MCL_G_YAW/PITCH/ROLL
+
+
+def set_grid(monkeypatch, yaw, pitch, roll):
+    """Both packages' pose-bin grid (read at import) for one test."""
+    for mod in (og, jog):
+        monkeypatch.setattr(mod, "G_YAW", yaw)
+        monkeypatch.setattr(mod, "G_PITCH", pitch)
+        monkeypatch.setattr(mod, "G_ROLL", roll)
+        monkeypatch.setattr(mod, "G_SPLIT", yaw * pitch * roll)
+        monkeypatch.setattr(mod, "G_GROUPS", yaw * pitch * roll + 1)
+
+
+def test_group_stats_matches_jax_at_fleet_grid(case, monkeypatch):
+    """``test_group_stats_matches_jax`` at the fleet's 6x1x1 grid: both
+    packages' statistics made again with the grid set."""
+    from mcl_3dl_tpu.math import quat as jmq
+
+    set_grid(monkeypatch, *FLEET_GRID)
+    rng, df, scan, N, pos, rot, _ = _unpack(case)
+    js = jog.group_stats(pos, jmq.rotation_matrix(jmq.normalize(rot)), rot,
+                         df.weights, float(df.cell), df.origin,
+                         jnp.ones((N,), bool))
+    ts = _port_stats(case)
+    assert ts.a_min.shape == np.asarray(js.a_min).shape == (7, 12)
+    assert int(ts.g.max()) <= 6
+    np.testing.assert_array_equal(ts.any_active.numpy(),
+                                  np.asarray(js.any_active))
+    _stats_match(case, ts, js)
+
+
+def test_group_stats_cpu_takes_the_plain_version(case):
+    """On CPU tensors ``group_stats`` is its plain version, bit for bit,
+    and M5's launch count does not move; the graphed step counts M5's
+    launches with the other kernels'."""
+    from mcl_3dl_tpu_torch import step_graph
+
+    rng, df, scan, N, pos, rot, _ = _unpack(case)
+    pos_t, rot_t = _t(pos), _t(rot)
+    n0 = og.group_stats.launches
+    got = _port_stats(case)
+    assert og.group_stats.launches == n0
+    want = og.group_stats_plain(
+        pos_t, tq.rotation_matrix(tq.normalize(rot_t)), rot_t, df.weights,
+        float(df.cell), _t(df.origin), torch.ones(N, dtype=torch.bool))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert og.group_stats in step_graph.KERNELS
 
 
 def test_layout_bands_boxes_tables_exact(case):

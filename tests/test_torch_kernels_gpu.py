@@ -10,7 +10,10 @@ exit; the tier-2 models run under ``torch.cuda.set_sync_debug_mode
 ("error")`` (no host read); under ``torch.func.vmap`` each launches once
 and gives every robot's bits.  K1's live-table counter, made beside the
 likelihood path's K1 launch, adds a launch's live tables eagerly and at
-every replay of a graph that holds it.
+every replay of a graph that holds it.  Kernel M5 (``group_stats``)
+against its plain version at the main path's and the fleet's bin grids:
+``A`` bit-equal, the bins and bounds to rounding, the same bits every call
+and from a replayed graph.
 
 Skipped without a CUDA device.  On the card, with no JAX installed:
 
@@ -46,7 +49,7 @@ from mcl_3dl_tpu_torch.ops import gather_bench as ogb
 from mcl_3dl_tpu_torch.ops import local_gather as olg
 from mcl_3dl_tpu_torch.profiling import spans
 from mcl_3dl_tpu_torch.tools import (exp_gather, exp_gather2, exp_rowsel_shape,
-                                     gather_pairs, to_device)
+                                     gather_pairs, grouped_pairs, to_device)
 
 torch.set_num_threads(2)   # several test workers share the CPU
 
@@ -60,14 +63,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cloud(dev, seed, n_tiles=4, K=8):
+def _cloud_state(dev, seed, n_tiles=4, K=8, n=None):
+    """``(df, scan, group_stats's arguments)`` of a converged cloud of
+    ``n`` particles (``n_tiles`` tiles by default) over a random point
+    map, all particles active."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-3.0, 3.0, (300, 3))
     df = build_distance_field(pts, 0.1, 0.6, weights=(1.0, 1.0, 2.0),
                               device=dev)
     scan = torch.tensor(rng.uniform(-1.5, 1.5, (K, 3)), dtype=torch.float32,
                         device=dev)
-    n = n_tiles * og.TILE
+    n = n_tiles * og.TILE if n is None else n
     pos = torch.tensor(rng.normal(0, 0.04, (n, 3)), dtype=torch.float32,
                        device=dev)
     rpy = np.stack([rng.normal(0, 0.02, n), rng.normal(0, 0.02, n),
@@ -75,8 +81,13 @@ def _cloud(dev, seed, n_tiles=4, K=8):
     rot = mq.from_rpy(torch.tensor(rpy, dtype=torch.float32, device=dev))
     active = torch.ones(n, dtype=torch.bool, device=dev)
     rmat = mq.rotation_matrix(mq.normalize(rot))
-    stats = og.group_stats(pos, rmat, rot, df.weights, df.cell, df.origin,
-                           active)
+    return df, scan, (pos, rmat, rot, df.weights, df.cell, df.origin, active)
+
+
+def _cloud(dev, seed, n_tiles=4, K=8):
+    df, scan, args = _cloud_state(dev, seed, n_tiles, K)
+    stats = og.group_stats(*args)
+    n = args[0].shape[0]
     return df, scan, stats, og.build_layout(stats, og.default_overflow_cap(n))
 
 
@@ -105,6 +116,83 @@ def test_like_kernel_matches_plain(cuda):
     for a, b in zip(got, want):
         assert torch.equal(a[keep], b[keep])
     assert float(got[1][keep].sum()) > 0
+
+
+# ---- M5 group_stats against its plain version
+
+# name -> (particles, bin grid); "cloud" is ``_cloud``'s 4 tiles
+_M5_SIZES = {"cloud": (4 * 1024, (24, 2, 2)),
+             "1M": (1 << 20, (24, 2, 2)),
+             "fleet": (10240, (6, 1, 1))}
+
+
+def _set_grid(monkeypatch, yaw, pitch, roll):
+    """The port's pose-bin grid (read at import) for one test."""
+    monkeypatch.setattr(og, "G_YAW", yaw)
+    monkeypatch.setattr(og, "G_PITCH", pitch)
+    monkeypatch.setattr(og, "G_ROLL", roll)
+    monkeypatch.setattr(og, "G_SPLIT", yaw * pitch * roll)
+    monkeypatch.setattr(og, "G_GROUPS", yaw * pitch * roll + 1)
+
+
+def _m5_args(dev, size, variant, seed=5):
+    """``group_stats``'s arguments: ``_cloud_state``'s cloud at ``size``
+    particles, with every 43rd particle kicked 0.54 m off its bin's
+    envelope (``kicked``) or the mask partly inactive (``inactive``: the
+    last two thirds, but every 7th particle)."""
+    _, _, args = _cloud_state(dev, seed, n=size)
+    pos, rmat, rot, w, cell, origin, active = args
+    if variant == "kicked":
+        pos = pos.clone()
+        pos[::43] += torch.tensor([0.4, -0.3, 0.2], device=dev)
+    else:
+        active = active.clone()
+        active[size // 3:] = False
+        active[::7] = True
+    return pos, rmat, rot, w, cell, origin, active
+
+
+@pytest.mark.parametrize("variant", ["kicked", "inactive"])
+@pytest.mark.parametrize("size", sorted(_M5_SIZES))
+def test_group_stats_kernel_matches_plain(cuda, monkeypatch, size, variant):
+    n, grid = _M5_SIZES[size]
+    _set_grid(monkeypatch, *grid)
+    args = _m5_args(cuda, n, variant)
+    n0 = og.group_stats.launches
+    got = og.group_stats(*args)
+    assert og.group_stats.launches == n0 + 1
+    want = og.group_stats_plain(*args)
+    torch.cuda.synchronize()
+    assert got.a_min.shape == (og.G_GROUPS, 12)
+    grouped_pairs.stats_agreement(got, want, n)
+    if variant == "kicked":
+        assert int(got.n_over) >= n // 43 // 2, int(got.n_over)
+    again = og.group_stats(*args)           # the same bits every call
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_group_stats_kernel_replays(cuda):
+    """``group_stats`` captured into a graph (``StepGraph.replay_front``)
+    and replayed gives the eager call's bits; each replay counts its
+    launch."""
+    args = _m5_args(cuda, 4 * og.TILE, "kicked", seed=9)
+    want = og.group_stats(*args)
+    graphs = step_graph.StepGraph(None, None, cuda)
+    n0 = og.group_stats.launches
+    for _ in range(3):
+        got = graphs.replay_front(lambda: og.group_stats(*args))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert og.group_stats.launches == n0 + 3
+
+
+def test_group_stats_refuses_a_grid_past_shared_memory(cuda, monkeypatch):
+    _set_grid(monkeypatch, 1000, 2, 2)
+    args = _m5_args(cuda, 4096, "kicked")
+    n0 = og.group_stats.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        og.group_stats(*args)
+    assert og.group_stats.launches == n0
 
 
 def test_like_live_tables_count_eager_and_replayed(cuda, monkeypatch):
