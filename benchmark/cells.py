@@ -4,10 +4,14 @@ Each takes the messages its mix's drive made (``drives/``).
 
 ``single``: one robot.  Each message of the lap is handed to the engine
 as soon as the last call returned: odometry (``MCL3DL.odometry``), IMU
-(``MCL3DL.imu``), re-seeds (``MCL3DL.initial_pose``) and scans
-(``MCL3DL.push_cloud``), in stamp order, the lap looped.  An update is a
-``push_cloud`` that returns a result; its latency is the host time of
-the call (the call returns with the pose on the host).
+(``MCL3DL.imu``), re-seeds (``MCL3DL.initial_pose``), global
+localization (``MCL3DL.global_localization``) and scans
+(``MCL3DL.push_cloud``, under the cloud's frame id), in stamp order, the
+lap looped.  An update is a ``push_cloud`` that steps the filter (a push
+that only accumulates its cloud is none) and returns a result; its
+latency is the host time of the call (the call returns with the pose on
+the host).  The clouds a step folds in are every cloud accumulated since
+the last step, as the engine's cloud accumulation hands them over.
 
 ``fleet``: every robot at once through ``parallel.fleet_filter_step_
 grouped``, one fleet step a scan period on the robots' scan banks, each
@@ -105,7 +109,29 @@ def single(cfg, mix, lap, seed, seconds, traced, device, t_start) -> Run:
         cfg["check"]["from_first"], cfg["check"]["scans"], replace=False)
         .tolist())
     reseed_cov = np.diag(mix.get("reseed_cov", mix["start_cov"]))
-    held = {"odom": None, "pending": None}
+    # "clouds": (points, origin, odometry) of each cloud accumulated since
+    # the last step; "folded": the clouds the last push stepped on, or None
+    held = {"odom": None, "clouds": [], "folded": None}
+    push = eng.accum.push
+
+    def observed(key, msg, process, accumulate, clear):
+        def acc(m):
+            kept = accumulate(m)
+            if kept:
+                held["clouds"].append((m[0], m[1], held["odom"]))
+            return kept
+
+        def clr():
+            clear()
+            held["clouds"] = []
+
+        def proc():
+            held["folded"] = list(held["clouds"])
+            process()
+
+        push(key, msg, proc, acc, clr)
+
+    eng.accum.push = observed
     if traced:
         wrap(eng, "_step", spans, "_step")
 
@@ -130,9 +156,12 @@ def single(cfg, mix, lap, seed, seconds, traced, device, t_start) -> Run:
         elif msg.kind == "reseed":
             with spans.span("initial_pose", sync=traced):
                 eng.initial_pose(msg.a, msg.b, reseed_cov)
+        elif msg.kind == "global":
+            with spans.span("global_localization", sync=traced):
+                eng.global_localization()
 
     def scan(msg, t, record=None):
-        """Push one cloud; ``(result, seconds)``."""
+        """Push one cloud; ``(result, seconds, whether it stepped)``."""
         if record is not None:
             s = eng.pstate
             record.update(
@@ -140,18 +169,17 @@ def single(cfg, mix, lap, seed, seconds, traced, device, t_start) -> Run:
                 gen_state=eng._gen.get_state(), f_pos=_filter(eng.f_pos),
                 f_ang=_filter(eng.f_ang),
                 prev_pos=eng.state_prev_pos.clone(),
-                prev_rot=eng.state_prev_rot.clone(),
-                cloud=held["pending"])
+                prev_rot=eng.state_prev_rot.clone())
+        held["folded"] = None
         with spans.span("push_cloud"):
             t0 = time.perf_counter()
-            res = eng.push_cloud("lidar", msg.a, msg.b, t)
+            res = eng.push_cloud(msg.frame, msg.a, msg.b, t)
             dt = time.perf_counter() - t0
-        held["pending"] = (msg.a, msg.b, held["odom"])
         if res is not None and record is not None:
-            record.update(result=_result(res),
+            record.update(result=_result(res), cloud=held["folded"],
                           tier_beam=int(eng.last_aux["tier_beam"]),
                           post_noise=eng.pstate.noise.clone())
-        return res, dt
+        return res, dt, held["folded"] is not None
 
     def until(n_scans, window=None, on_scan=None):
         done = 0
@@ -160,9 +188,12 @@ def single(cfg, mix, lap, seed, seconds, traced, device, t_start) -> Run:
             if msg.kind != "cloud":
                 feed(msg, t)
                 continue
-            (on_scan or scan)(msg, t)
+            out = (on_scan or scan)(msg, t)
             done += 1
-            if window is not None and time.perf_counter() - window >= seconds:
+            # the window ends with an update (``timed`` says whether the
+            # push stepped), never on a push that only accumulated
+            if (window is not None and out
+                    and time.perf_counter() - window >= seconds):
                 break
 
     until(mix["warmup_scans"])
@@ -174,7 +205,9 @@ def single(cfg, mix, lap, seed, seconds, traced, device, t_start) -> Run:
     def timed(msg, t):
         k = run.attempted
         record = {} if k in check_at else None
-        res, dt = scan(msg, t, record)
+        res, dt, stepped = scan(msg, t, record)
+        if not stepped:
+            return False
         run.attempted += 1
         run.latencies.append(dt)
         if not _finite(res):
@@ -186,7 +219,7 @@ def single(cfg, mix, lap, seed, seconds, traced, device, t_start) -> Run:
             run.steps_00 += int(aux["tier_like"] == 0 and aux["tier_beam"] == 0)
         if record is not None and "result" in record:
             run.records.append(record)
-        return res
+        return True
 
     t_win = time.perf_counter()
     run.setup_s = t_win - t_start
@@ -291,8 +324,8 @@ def fleet(cfg, mix, fl, seed, seconds, traced, device, t_start) -> Run:
                      f_pos=tuple(t[r].clone() for t in fp),
                      f_ang=tuple(t[r].clone() for t in fa),
                      prev_pos=pp[r].clone(), prev_rot=pr[r].clone(),
-                     cloud=(fl.bank[k % bank.shape[0], r], base_origin,
-                            base_odom)) for r in sample]
+                     cloud=[(fl.bank[k % bank.shape[0], r], base_origin,
+                             base_odom)]) for r in sample]
         aux = one(k)
         k += 1
         ok = (torch.isfinite(aux["pub_pos"]).all(-1)

@@ -21,6 +21,14 @@ The control is the reference put in the program's place with both
 measurement models computed in bfloat16 (``dtype``), the configuration
 stating float32; its draws and everything after the models are the
 reference's own.
+
+The reference step is ``reference_step`` on ``reference.field``'s
+field, unless the cell's configuration or traffic mix names another
+(``"reference": "<name>"``, the mix's name first): then
+``references/<name>.py``'s ``build(map_points, model, device)`` makes
+its field and its ``step(field, model, rec, device, dtype)`` answers as
+``reference_step`` does.  Such a module is plain PyTorch or NumPy, as
+``reference/`` is.
 """
 
 from __future__ import annotations
@@ -62,15 +70,24 @@ def field_cells(map_points, model: dict) -> int:
 
 
 def reference_step(field, model, rec, device, dtype=torch.float32):
-    """The reference's answer for one record: ``(answer, post noise)``."""
+    """The reference's answer for one record: ``(answer, post noise)``.
+    The record's clouds (``(points, origin, odometry)`` each, as
+    accumulated) go into the base frame at the last one's odometry and
+    are joined, each point labelled with its cloud's index
+    (src/mcl_3dl.cpp:304-360)."""
     lp, bp, fp = model["likelihood"], model["beam"], model["filter"]
-    pts, origin, odom = rec["cloud"]
-    odom_pos, odom_rot = (np.asarray(v, np.float32) for v in odom)
-    base, org = rc.to_base(pts, origin, odom_pos, odom_rot)
+    clouds = rec["cloud"]
+    odom_pos, odom_rot = (np.asarray(v, np.float32) for v in clouds[-1][2])
+    moved = [rc.to_base(pts, origin, odom_pos, odom_rot)
+             for pts, origin, _ in clouds]
+    base = np.concatenate([b for b, _ in moved])
+    org = np.stack([o for _, o in moved])
+    labels = np.concatenate([np.full(len(b), i) for i, (b, _) in
+                             enumerate(moved)])
     if model["scan_leaf"] is None:
-        cl = rc.raw(base, org, device)
+        cl = rc.raw(base, org, device, labels)
     else:
-        cl = rc.prepare(base, org, model["scan_leaf"], device)
+        cl = rc.prepare(base, org, model["scan_leaf"], device, labels)
     like_keep, beam_keep = rc.keeps(cl, lp, bp)
     state = {k: v.to(device) for k, v in rec["state"].items()}
     cap = state["pos"].shape[0]
@@ -143,18 +160,25 @@ def worst(rows) -> dict:
     return {k: max(r[k] for r in rows) for k in NUMBERS} if rows else {}
 
 
-def compare(records, model, map_points, device, control=False, log=None):
+def compare(records, model, map_points, device, control=False, log=None,
+            reference=None):
     """``(numbers, control numbers or None)`` over the records: the
     program's answers against the reference's, and with ``control`` the
-    bfloat16 reference's against the float32 one's."""
-    field = rf.build(map_points, field_config(model), device)
+    bfloat16 reference's against the float32 one's.  ``reference``: a
+    named reference module (``harness.reference``), or ``None`` for
+    ``reference_step``."""
+    if reference is None:
+        field = rf.build(map_points, field_config(model), device)
+        step = reference_step
+    else:
+        field = reference.build(map_points, model, device)
+        step = reference.step
     rows, ctl = [], []
     for rec in records:
-        want, noise = reference_step(field, model, rec, device)
+        want, noise = step(field, model, rec, device, torch.float32)
         rows.append(gaps(rec["result"], want, rec["post_noise"], noise))
         if control:
-            low, low_noise = reference_step(field, model, rec, device,
-                                            torch.bfloat16)
+            low, low_noise = step(field, model, rec, device, torch.bfloat16)
             ctl.append(gaps(low, want, low_noise, noise))
         if log is not None:
             log(f"check: {rows[-1]}" + (f" control {ctl[-1]}" if control

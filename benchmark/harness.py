@@ -9,7 +9,17 @@ its own, and the result line.
 * ``traffic/<traffic>.json``: a mix's parameters, read by the generator
   its ``drive`` names.
 * ``drives/<drive>.py``: ``LOOP`` (the loop of ``cells.py`` that runs
-  it), ``make(mix, config, seed)`` -> the messages.
+  it), ``make(mix, config, seed)`` -> the messages (``traffic.Message``:
+  a cloud's ``frame`` is its sensor, so two LIDARs are two frames that
+  the program accumulates as the configuration's ``accum_cloud`` says;
+  the kind ``global`` calls ``global_localization``).
+* ``references/<reference>.py``: a reference step of its own, named by
+  the configuration's or the mix's optional ``"reference"`` key (the
+  mix's first): ``build(map_points, model, device)`` -> its field,
+  ``step(field, model, rec, device, dtype)`` -> ``(answer, post
+  noise)`` as ``check.reference_step`` gives them (``rec["cloud"]``:
+  every cloud the step folded in, ``(points, origin, odometry)`` in
+  order).  Without the key ``check.reference_step`` is the reference.
 * ``metrics/<metric>.py``: ``read(trace) -> float or None``; a metric
   split by cells (``<metric>.<cells>``) is read by ``<metric>``'s file
   unless it has one of its own.  End-to-end metrics split so measure
@@ -20,7 +30,11 @@ its own, and the result line.
 * ``limits/<workload>.json``: each compared number's limit.
 
 A later change adds a cell, a mix, a metric or a count as new files and
-new ``BENCHMARK.json`` entries; no file here changes.
+new ``BENCHMARK.json`` entries; no file here changes.  A new deployment
+(a ``model_config`` change) brings its configuration, its mixes with
+their drives, limits and, where the default step does not cover its
+options (global mode, the trilinear field, the DDA march, the
+normal-weighted sampler), a reference module.
 """
 
 from __future__ import annotations
@@ -88,6 +102,10 @@ def metric_reader(name: str, base: Path = HERE):
 
 def drive(name: str, base: Path = HERE):
     return _module("drives", name, base)
+
+
+def reference(name: str, base: Path = HERE):
+    return _module("references", name, base)
 
 
 def roofline(name: str, base: Path = HERE):

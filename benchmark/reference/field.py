@@ -23,9 +23,11 @@ def f32(x) -> float:
     return float(np.float32(x))
 
 
-def voxel_downsample(points, leaf):
+def voxel_downsample(points, leaf, labels=None):
     """Centroids [M, 3] f32: one per occupied voxel of size ``leaf``,
-    ordered by the voxel's flat index."""
+    ordered by the voxel's flat index; with ``labels`` [N] (each point's
+    sensor) also each voxel's label [M]: the mean of its points' labels,
+    rounded half to even."""
     pts = np.asarray(points, np.float64).reshape(-1, 3)
     leaf = np.broadcast_to(np.asarray(leaf, np.float64), (3,))
     ijk = np.floor(pts / leaf).astype(np.int64)
@@ -36,7 +38,12 @@ def voxel_downsample(points, leaf):
                                   return_counts=True)
     sums = np.zeros((keys.size, 3))
     np.add.at(sums, inv, pts)
-    return (sums / counts[:, None]).astype(np.float32)
+    centroids = (sums / counts[:, None]).astype(np.float32)
+    if labels is None:
+        return centroids
+    label_sums = np.zeros(keys.size)
+    np.add.at(label_sums, inv, np.asarray(labels, np.float64))
+    return centroids, np.round(label_sums / counts).astype(np.int64)
 
 
 def truncation(cfg) -> float:

@@ -74,10 +74,11 @@ def p95(values):
 
 
 def run_cell(name, seed, seconds, trace, *, device="cuda", root=ROOT,
-             overrides=None, mix_overrides=None, limits=None, control=False,
-             t_start=None, log=_log):
+             base=harness.HERE, overrides=None, mix_overrides=None,
+             limits=None, control=False, t_start=None, log=_log):
     """One run of cell ``name``: ``(result line as a dict, checks,
-    control readings or None)``.  ``overrides`` and ``mix_overrides``
+    control readings or None)``.  ``root`` holds ``BENCHMARK.json``,
+    ``base`` the files found by name; ``overrides`` and ``mix_overrides``
     replace entries of the configuration and the mix (the tests' small
     sizes on the host), ``limits`` the limits file's."""
     import torch
@@ -87,9 +88,10 @@ def run_cell(name, seed, seconds, trace, *, device="cuda", root=ROOT,
     t_start = T0 if t_start is None else t_start
     bench = harness.load_benchmark(root)
     w = harness.workload(bench, name)
-    cfg = merge(harness.config(w["config"]), overrides or {})
-    mix = merge(harness.traffic(w["traffic"]), mix_overrides or {})
-    drive = harness.drive(mix["drive"])
+    cfg = merge(harness.config(w["config"], base), overrides or {})
+    mix = merge(harness.traffic(w["traffic"], base), mix_overrides or {})
+    drive = harness.drive(mix["drive"], base)
+    ref_name = mix.get("reference", cfg.get("reference"))
     loop = getattr(cells, drive.LOOP)
     r = loop(cfg, mix, drive.make(mix, cfg, seed), seed, seconds,
              bool(trace), device, t_start)
@@ -106,6 +108,8 @@ def run_cell(name, seed, seconds, trace, *, device="cuda", root=ROOT,
         values = {"updates_per_s": r.updates / r.window_s,
                   "update_p95_ms": p95(r.latencies) * 1e3
                   if len(r.latencies) > 1 else None,
+                  "update_p50_ms": statistics.median(r.latencies) * 1e3
+                  if r.latencies else None,
                   "setup_s": r.setup_s}
         metrics = {k: (values[k.split(".")[0]], u) for k, u in units.items()
                    if values.get(k.split(".")[0]) is not None}
@@ -115,9 +119,10 @@ def run_cell(name, seed, seconds, trace, *, device="cuda", root=ROOT,
             breakdown = r.prof["breakdown"]
         tr_in = dict(spans=r.spans, routes=r.routes, steps=r.steps,
                      steps_00=r.steps_00, scans=r.scans, prof=r.prof,
+                     updates=r.updates, window_s=r.window_s,
                      shapes=shapes(cfg, world), cell=name)
         for m in harness.per_layer_for(bench, name):
-            v = harness.metric_reader(m["name"])(tr_in)
+            v = harness.metric_reader(m["name"], base)(tr_in)
             if v is not None:
                 metrics[m["name"]] = (v, m["unit"])
     lat = sorted(r.latencies)
@@ -133,13 +138,15 @@ def run_cell(name, seed, seconds, trace, *, device="cuda", root=ROOT,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
+    reference = None if ref_name is None else harness.reference(ref_name,
+                                                                base)
     numbers, ctl = check.compare(records, cfg["model"], world, dev,
-                                 control=control)
+                                 control=control, reference=reference)
     log(f"run: reference over {len(records)} updates in "
         f"{time.perf_counter() - t_check:.3f} s")
     if limits is None:
         try:
-            limits = harness.limits(name)
+            limits = harness.limits(name, base)
         except FileNotFoundError:
             limits = {}
     limits = {k: float(limits.get(k, 0.0)) for k in check.NUMBERS}

@@ -15,7 +15,7 @@ import time
 from collections import defaultdict
 
 HOST_RANGES = ("push_cloud", "_step", "odometry", "imu", "initial_pose",
-               "fleet_step")
+               "global_localization", "fleet_step")
 
 
 class Spans:

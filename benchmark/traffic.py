@@ -13,7 +13,10 @@ as floor returns nearer than the first obstacle, and 1 cm noise.
 
 A drive returns a ``Lap`` (one robot's messages, looped by
 ``cells.single``) or a ``Fleet`` (robots' poses and scan banks, stepped
-by ``cells.fleet``); its module's ``LOOP`` names the loop.
+by ``cells.fleet``); its module's ``LOOP`` names the loop.  A lap's
+clouds carry their sensor's ``frame`` (two LIDARs: two frames, folded
+together as the configuration's ``accum_cloud`` says), and a ``global``
+message calls the global-localization service.
 """
 
 from __future__ import annotations
@@ -100,10 +103,11 @@ def bridged_walk(rng, n, sigma, rate, dims):
 
 
 class Message(NamedTuple):
-    kind: str              # "odom", "imu", "cloud" or "reseed"
+    kind: str              # "odom", "imu", "cloud", "reseed" or "global"
     t: float               # drive time of the lap, s
     a: np.ndarray          # odom/reseed position, imu acceleration, cloud points
     b: np.ndarray          # odom/imu/reseed orientation, cloud sensor origin
+    frame: str = "lidar"   # a cloud's sensor frame id (``push_cloud``'s key)
 
 
 class Lap(NamedTuple):
