@@ -53,9 +53,15 @@ without grouping, the DDA beam), else eagerly; on the CPU ``_step`` is
 or the map drops the graphs (``drop_step_graphs``).
 
 Each public call (``push_cloud``, ``odometry``, ``imu``,
-``initial_pose``) is a request of the program's tracer,
-``profiling.spans``, whose spans split it at the layers' boundaries (the
-shell's ``scan.*`` pieces, the step, the host reads ``read.*``).
+``initial_pose``, ``global_localization``) is a request of the program's
+tracer, ``profiling.spans``, whose spans split it at the layers'
+boundaries (the shell's ``scan.*`` pieces, the step, the host reads
+``read.*``).  The global-localization service splits into
+``global.standable`` (the standable-cell search on the host) and
+``global.seed`` (capacity growth and the seeding, counter
+``global.seeds``: the seed count); a global-mode step records its slot
+bucket (``global.slots``) and the capacity's cut after the decay is
+``capacity.shrink``.
 
 The fleet and the splits over ``torch.distributed`` are ``parallel/``;
 the step gains two switches for them.  ``spmd_safe`` (the batched fleet,
@@ -407,12 +413,14 @@ class MCL3DL:
 
     def _maybe_shrink_capacity(self, n: int) -> None:
         """Cut the tensors back to the bucket of ``n`` active particles
-        once the count has decayed."""
+        once the count has decayed (span ``capacity.shrink`` where it
+        cuts)."""
         target = _bucket(n, self._base_capacity)
         s = self.pstate
         if s.capacity > target:
-            self.pstate = ParticleState(*(a[:target] for a in s[:-1]),
-                                        n_active=s.n_active)
+            with spans.span("capacity.shrink"):
+                self.pstate = ParticleState(*(a[:target] for a in s[:-1]),
+                                            n_active=s.n_active)
 
     # ---------------------------------------------------------------- map I/O
 
@@ -1023,8 +1031,11 @@ class MCL3DL:
         """``_measurement_step``'s signature and outputs, from CUDA graphs
         where it can (``step_graph.run``; on the CPU, and for global-mode,
         batched, split and normal-sampler steps, ``_measurement_step``
-        itself), inside the span ``step``."""
+        itself), inside the span ``step``; a global-mode step records its
+        likelihood slot bucket (counter ``global.slots``)."""
         with spans.span("step"):
+            if kw.get("global_mode"):
+                spans.count("global.slots", kw["global_slots"])
             return step_graph.run(self, *args, **kw)
 
     def _step_front(self, state: ParticleState, df, df_beam, cloud,
@@ -1214,15 +1225,15 @@ class MCL3DL:
 
     def _seed(self, n: int, pos, yaw, prob) -> int:
         """Replace the particle set with ``n`` seeds: ``pos`` [cap, 3],
-        ``yaw`` [cap] (float64, composed with the IMU attitude) and
-        ``prob`` [cap] on the host, capacity already grown."""
+        ``yaw`` [cap] (composed with the IMU attitude) and ``prob`` [cap],
+        host arrays or device tensors, capacity already grown."""
         f = dict(dtype=torch.float32, device=self.device)
-        cap = self.pstate.capacity
-        zero = np.zeros(cap)
-        rpy = torch.as_tensor(np.stack([zero, zero, yaw], axis=-1), **f)
+        yaw = torch.as_tensor(yaw, **f)
+        zero = torch.zeros_like(yaw)
+        rpy = torch.stack([zero, zero, yaw], dim=-1)
         rot = mq.normalize(mq.mul(mq.from_rpy(rpy),
                                   torch.as_tensor(self.imu_quat, **f)))
-        self.pstate = st.zeros(cap, n, self.device)._replace(
+        self.pstate = st.zeros(self.pstate.capacity, n, self.device)._replace(
             pos=torch.as_tensor(pos, **f), rot=rot,
             prob=torch.as_tensor(prob, **f))
         self._n_active_host = n
@@ -1234,20 +1245,29 @@ class MCL3DL:
         with the IMU attitude; returns the new particle count."""
         if not self.has_map:
             raise RuntimeError("No map received.")
-        self.drop_step_graphs()
-        points = self._standable_points()
-        if points.shape[0] == 0:
-            return self._n_active_host
-        dyaw = self.params.global_localization_div_yaw
-        n = points.shape[0] * dyaw
-        self._grow_capacity(n)
-        idx = np.arange(self.pstate.capacity, dtype=np.int64)
-        pt_idx = np.minimum(idx // dyaw, points.shape[0] - 1)
-        yaw = (2.0 * np.pi * (idx % dyaw) / dyaw).astype(np.float32)
-        # reference quirk: 1/points, not 1/n
-        prob = np.where(idx < n, np.float32(1.0 / float(points.shape[0])),
-                        np.float32(0.0))
-        return self._seed(n, points[pt_idx], yaw, prob)
+        with spans.request("global_localization"):
+            self.drop_step_graphs()
+            with spans.span("global.standable"):
+                points = self._standable_points()
+            if points.shape[0] == 0:
+                return self._n_active_host
+            with spans.span("global.seed"):
+                dyaw = self.params.global_localization_div_yaw
+                n = points.shape[0] * dyaw
+                spans.count("global.seeds", n)
+                self._grow_capacity(n)
+                # built on the device from the standable points: on the
+                # host, millions of seeds would take most of the call
+                idx = torch.arange(self.pstate.capacity, device=self.device)
+                pt_idx = torch.clamp(idx // dyaw, max=points.shape[0] - 1)
+                pos = torch.as_tensor(points, dtype=torch.float32,
+                                      device=self.device)[pt_idx]
+                yaw = (2.0 * math.pi * (idx % dyaw).double() / dyaw).float()
+                # reference quirk: 1/points, not 1/n
+                prob = torch.where(idx < n,
+                                   float(np.float32(1.0 / points.shape[0])),
+                                   0.0)
+                return self._seed(n, pos, yaw, prob)
 
     def global_localization_correlative(
             self, num_seeds: int = 1024, yaw_bins: Optional[int] = None,

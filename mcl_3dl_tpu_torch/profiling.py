@@ -13,16 +13,23 @@ start and end (``time.perf_counter_ns``), its id, the id of the span it
 opened inside (0 at the top), the request it belongs to and the fleet
 robot it ran for (``None`` outside the fleet).  A request is one
 top-level public call, opened by ``spans.request``: ``push_cloud``,
-``odometry``, ``imu``, ``initial_pose`` or one fleet step; a public call
-made inside another one (the fake IMU inside ``odometry``) is a span of
-the outer request.  Counters (``spans.count``) are records of a value at
-the same boundaries.  ``spans.records()`` returns the ring, oldest
-first; nothing writes it out.
+``odometry``, ``imu``, ``initial_pose``, ``global_localization`` or one
+fleet step; a public call made inside another one (the fake IMU inside
+``odometry``) is a span of the outer request.  Counters
+(``spans.count``) are records of a value at the same boundaries.
+``spans.records()`` returns the ring, oldest first; nothing writes it
+out.
 
 Where the spans are (the names ``PERF.md`` uses):
 
 * ``engine.py``: roots ``push_cloud``, ``odometry``, ``imu``,
-  ``initial_pose``; ``scan.accumulate``, ``scan.transform`` (the
+  ``initial_pose``, ``global_localization`` (the service:
+  ``global.standable``, the standable-cell search on the host, and
+  ``global.seed``, capacity growth and the seeding, with counter
+  ``global.seeds``, the seed count); counter ``global.slots`` (a
+  global-mode step's likelihood slot bucket, once a step, inside
+  ``step``); ``capacity.shrink`` (the particle tensors cut back to the
+  decayed count's bucket); ``scan.accumulate``, ``scan.transform`` (the
   clouds' concatenation and rotation into the base frame), ``scan``
   (one measurement; ``MeasureResult.elapsed`` is read inside it on the
   same clock, ``now``), ``scan.prepare`` (downsample, padding and the
