@@ -50,7 +50,10 @@ back from the graph of its ``fits`` outcome where that remainder reads
 nothing on the host (tiers 0/0, trilinear sampling, the small counts
 without grouping, the DDA beam), else eagerly; on the CPU ``_step`` is
 ``_measurement_step``.  Every service that replaces the particle state
-or the map drops the graphs (``drop_step_graphs``).
+or the map drops the graphs (``drop_step_graphs``).  Odometry's
+prediction and the IMU's weigh replay graphs of their own on the card
+(``predict_graph.py``, JAX's ``_predict_jit`` and ``_imu_jit``), keyed
+by the capacity and kept across those services.
 
 Each public call (``push_cloud``, ``odometry``, ``imu``,
 ``initial_pose``, ``global_localization``) is a request of the program's
@@ -85,6 +88,7 @@ import numpy as np
 import torch
 
 from mcl_3dl_tpu_torch import pf
+from mcl_3dl_tpu_torch import predict_graph
 from mcl_3dl_tpu_torch import state as st
 from mcl_3dl_tpu_torch import step_graph
 from mcl_3dl_tpu_torch.cloud_accum import (CloudAccumulation,
@@ -102,12 +106,9 @@ from mcl_3dl_tpu_torch.math import quat_np as mqn
 from mcl_3dl_tpu_torch.math.nd import NormalLikelihoodNd, normal_likelihood
 from mcl_3dl_tpu_torch.models.beam import (BeamVirtualPoints, beam_measure,
                                            beam_measure_grouped)
-from mcl_3dl_tpu_torch.models.imu_gravity import imu_gravity_likelihood
 from mcl_3dl_tpu_torch.models.landmark import landmark_likelihood
 from mcl_3dl_tpu_torch.models.likelihood import clip_mask, likelihood_measure
-from mcl_3dl_tpu_torch.models.motion import (OdomDelta,
-                                             predict_differential_drive,
-                                             reset_error_integrals)
+from mcl_3dl_tpu_torch.models.motion import OdomDelta, reset_error_integrals
 from mcl_3dl_tpu_torch.models.samplers import (
     draw_gumbel, draw_uniform_indices, estimate_normals_host,
     normal_weight_direction, sample_uniform,
@@ -354,11 +355,18 @@ class MCL3DL:
         # many steps took each route (``step_graph.ROUTES``)
         self._graphs: dict = {}
         self.step_routes = dict.fromkeys(step_graph.ROUTES, 0)
+        # the odometry and IMU chains' CUDA graphs by key
+        # (``predict_graph.key``; ``drop_step_graphs`` keeps them), and how
+        # many calls took each route (``predict_graph.ROUTES``)
+        self._predict_graphs: dict = {}
+        self.predict_routes = dict.fromkeys(predict_graph.ROUTES, 0)
 
     def drop_step_graphs(self) -> None:
         """Forget ``_step``'s graphs (the next step at a key warms it up
         again), as the JAX engine re-creates its jitted step: every service
-        that replaces the particle state or the map calls this."""
+        that replaces the particle state or the map calls this.  The
+        odometry and IMU graphs stay (``predict_graph``: keyed by the
+        capacity, they read no map)."""
         if self._graphs:
             spans.count("graph.drops")
         self._graphs.clear()
@@ -499,11 +507,10 @@ class MCL3DL:
             p = self.params
             with spans.span("odometry.predict"):
                 delta = OdomDelta.from_poses(
-                    self.odom_prev_pos, self.odom_prev_rot, pos, rot, dt,
-                    device=self.device)
-                self.pstate = predict_differential_drive(
-                    self.pstate, delta, p.odom_err_integ_lin_tc,
-                    p.odom_err_integ_ang_tc)
+                    self.odom_prev_pos, self.odom_prev_rot, pos, rot, dt)
+                self.pstate = predict_graph.run(
+                    self, predict_graph.ODOMETRY, self.pstate, delta,
+                    (p.odom_err_integ_lin_tc, p.odom_err_integ_ang_tc))
             self.odom_last = t
             self.odom_prev_pos, self.odom_prev_rot = pos, rot
         if self.params.fake_imu:
@@ -530,12 +537,11 @@ class MCL3DL:
             return
         if dt > 0.05:
             with spans.span("imu.weigh"):
-                acc_measure = (acc_f / torch.linalg.vector_norm(acc_f)).to(
-                    self.device)
+                acc_measure = acc_f / torch.linalg.vector_norm(acc_f)
                 self.imu_quat = np.asarray(orientation, np.float32)
-                lik = imu_gravity_likelihood(self.pstate.rot, acc_measure,
-                                             self.params.acc_var)
-                self.pstate, _ = pf.measure(self.pstate, lik)
+                self.pstate = predict_graph.run(
+                    self, predict_graph.IMU, self.pstate, (acc_measure,),
+                    (self.params.acc_var,))
             self.imu_last = t
             if self.params.fake_odom:
                 self.odometry(np.zeros(3, np.float32), self.imu_quat, t)

@@ -23,10 +23,10 @@ class OdomDelta(NamedTuple):
     dt: torch.Tensor                 # []
 
     @classmethod
-    def from_poses(cls, pos_prev, rot_prev, pos_cur, rot_cur, dt,
-                   device=None) -> "OdomDelta":
+    def from_poses(cls, pos_prev, rot_prev, pos_cur, rot_cur,
+                   dt) -> "OdomDelta":
         """setOdoms (motion_prediction_model_differential_drive.h:46-54),
-        in f32 on the host, then moved to ``device``."""
+        in f32 on the host (``predict_graph`` moves it to the device)."""
         f = dict(dtype=torch.float32)
         pos_prev, rot_prev, pos_cur, rot_cur = (
             torch.as_tensor(x, **f)
@@ -35,10 +35,9 @@ class OdomDelta(NamedTuple):
         translation = mq.rotate(inv_prev, pos_cur - pos_prev)
         rotation = mq.mul(inv_prev, rot_cur)
         _, angle = mq.to_axis_angle(rotation)
-        d = cls(translation=translation, rotation=rotation, angle=angle,
-                translation_norm=torch.linalg.vector_norm(translation),
-                dt=torch.tensor(dt, **f))
-        return cls(*(x.to(device) for x in d))
+        return cls(translation=translation, rotation=rotation, angle=angle,
+                   translation_norm=torch.linalg.vector_norm(translation),
+                   dt=torch.tensor(dt, **f))
 
 
 def predict_differential_drive(state: ParticleState, delta: OdomDelta,

@@ -36,6 +36,10 @@ Where the spans are (the names ``PERF.md`` uses):
   step's host inputs),
   ``read.aux`` (the host waiting for the step's outputs), ``scan.publish``
   (the epilogue); ``odometry.predict``, ``imu.weigh``.
+* ``predict_graph.py``: in each ``odometry.predict`` and ``imu.weigh``,
+  the call's route counter ``predict.graph``, ``predict.warm_up`` or
+  ``predict.eager``; ``odometry.capture`` and ``imu.capture`` (with
+  ``graph.alloc_retries`` and ``graph.reserved_bytes``).
 * ``step_graph.py``: ``step`` (every route), ``step.draws``,
   ``step.load``, ``step.replay_a``, ``step.replay_b``, ``step.remainder``,
   ``step.copy_out``, ``step.warm_up``, ``step.eager``, ``step.capture_a``

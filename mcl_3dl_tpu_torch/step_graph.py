@@ -215,7 +215,7 @@ class StepGraph:
 
     def _capture(self, fn, name):
         before = launch_counts()
-        with spans.span(name), _allocator_deltas(self.device):
+        with spans.span(name), allocator_deltas(self.device):
             graph, out = capture(fn, self.pool)
         held = [a - b for a, b in zip(launch_counts(), before)]
         for k, n in zip(KERNELS, before):
@@ -255,7 +255,7 @@ class BackGraph(NamedTuple):
 
 
 @contextlib.contextmanager
-def _allocator_deltas(device):
+def allocator_deltas(device):
     """Counters ``graph.alloc_retries`` and ``graph.reserved_bytes``: what
     the caching allocator's ``num_alloc_retries`` and reserved bytes
     gained across the block, on a CUDA device while the tracer is on."""

@@ -147,7 +147,10 @@ def test_push_cloud_spans_nest_under_one_request(tracer):
     assert (scan.end - scan.start) * 1e-9 - elapsed < 0.01
     odom = _requests(tracer.records(), "odometry")
     assert [set(r) for r in odom] == [{"odometry"}] + [
-        {"odometry", "odometry.predict"}] * 2   # the first sets the origin
+        {"odometry", "odometry.predict", "predict.eager"}] * 2  # the first
+    # sets the origin; the route counter sits in the predict's span
+    assert all(r["predict.eager"][0].parent == r["odometry.predict"][0].id
+               for r in odom[1:])
     assert eng.step_routes["eager"] == 1
 
 
